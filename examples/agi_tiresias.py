@@ -5,7 +5,7 @@ The reference is an in-process Asterisk module
 (/root/reference/src/application_handler.c): the dialplan calls
 ``Tiresias(context,duration,tolerance,low,high)``, the module records the
 channel, searches, and sets seven ``TIR*`` channel variables. This script
-reproduces that contract for the TPU framework without any Asterisk C code:
+reproduces that contract for this framework without any Asterisk C code:
 Asterisk invokes it as an **EAGI** script (raw 8 kHz signed-linear channel
 audio on fd 3), it streams the audio to a running ``tiresias serve`` TCP
 service, and sets the same TIR* variables back on the channel.

@@ -1,4 +1,4 @@
-// Optional compressed-audio codec backend for tiresias-tpu.
+// Optional compressed-audio codec backend for tiresias.
 //
 // The reference inherits MP3/OGG/FLAC/... support from aubio_source's
 // libav/sndfile backends (/root/reference/src/fp_handler.c:604 — the decode

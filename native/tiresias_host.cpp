@@ -1,4 +1,4 @@
-// Native host runtime for tiresias-tpu.
+// Native host runtime for tiresias.
 //
 // The reference keeps its hot host paths in C: audio decode via aubio_source
 // (/root/reference/src/fp_handler.c:604,633) and file MD5 via OpenSSL

@@ -150,13 +150,12 @@ def test_live_append_keeps_views_sharded(tmp_path):
 
 
 def test_sharded_engine_fused_pallas_dispatch(tmp_path, monkeypatch):
-    """Sharded store + TIRESIAS_SHARDED_PALLAS=interpret: the engine must
-    route generic and ALIGNED searches through the shard-mapped fused
-    Mosaic matcher (interpret mode on the CPU mesh — the same dispatch a
-    TPU mesh takes compiled) and still match the single-device engine."""
+    """Sharded store: the engine must route generic and ALIGNED searches
+    through the shard-mapped fused matcher (the XLA form on the CPU mesh,
+    the Triton kernels on a GPU mesh — one dispatch) and still match the
+    single-device engine."""
     import tiresias_tpu.parallel.sharding as sharding_mod
 
-    monkeypatch.setenv("TIRESIAS_SHARDED_PALLAS", "interpret")
     calls = []
     real = sharding_mod.sharded_votes_pallas
 
@@ -188,7 +187,6 @@ def test_sharded_engine_prefilter_dispatch(tmp_path, monkeypatch):
     match the single-device engine — including context-filtered."""
     import tiresias_tpu.ops.match_pallas as mp
 
-    monkeypatch.setenv("TIRESIAS_SHARDED_PALLAS", "interpret")
     monkeypatch.setattr(mp, "PREFILTER_K", 1)  # open the engine gate
     mesh = make_mesh(4, 2)
     sharded = _build(tmp_path / "a", mesh)

@@ -6,7 +6,7 @@ the float64 oracle over the canonical corpus (generated once by
 paths are compared against the *file*: editing
 ``tiresias_tpu/ops/reference_dsp.py`` (or windows/melbank/dct) alone now
 fails these tests instead of silently re-baselining everything —
-VERDICT.md round-1 item 5. Reference numerics anchored at
+Reference numerics anchored at
 /root/reference/src/fp_handler.c:632-661.
 """
 
@@ -18,14 +18,8 @@ import pytest
 from golden_corpus import MIN_COVERAGE, all_cases
 from tiresias_tpu.config import DspConfig
 from tiresias_tpu.ops import mfcc_jax, reference_dsp as rdsp
-from tiresias_tpu.ops.dct import dct_matrix
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens", "mfcc_goldens.npz")
-
-ALPHA = 2e-5  # float32 noise scale of the magnitude-spectrum path
-BOUND_CAP = 0.2
-LN10 = np.log(10.0)
-
 
 @pytest.fixture(scope="module")
 def goldens():
@@ -34,14 +28,7 @@ def goldens():
 
 def _bound_from_fixture(g, name, dsp):
     """Float32 error-propagation bound computed from FROZEN stages only."""
-    mels = g[f"{name}/mels"]
-    coefs = g[f"{name}/coefs"]
-    e_max = mels.max(axis=1, keepdims=True)
-    rel = np.where(mels > 0, ALPHA * e_max / np.maximum(mels, 1e-300), 0.0)
-    err_l = rel / LN10
-    dct = np.abs(dct_matrix(dsp.n_filters, dsp.n_coefs))
-    err_c = err_l @ dct.T
-    return (10.0 / LN10) * err_c / np.maximum(np.abs(coefs), 1e-12)
+    return rdsp.fp_error_bound(g[f"{name}/mels"], g[f"{name}/coefs"], dsp)
 
 
 CASE_NAMES = sorted(all_cases())
@@ -77,13 +64,11 @@ def test_live_path_matches_frozen_fixture(goldens, name):
     make_pcm, sr = all_cases()[name]
     dsp = DspConfig()
     ours = np.asarray(mfcc_jax.fingerprint_signal(make_pcm(), sr, dsp))
-    golden = goldens[f"{name}/fp"]
-    bound = _bound_from_fixture(goldens, name, dsp)
-    assert ours.shape == golden.shape
-    use = bound < BOUND_CAP
-    assert use.mean() >= MIN_COVERAGE[name], "bound excludes too much — vacuous"
-    worst = (np.abs(ours - golden) - bound)[use].max()
-    assert worst < 5e-3, f"max excess diff {worst}"
+    rep = rdsp.parity_report(
+        ours, goldens[f"{name}/fp"], _bound_from_fixture(goldens, name, dsp)
+    )
+    assert rep["coverage"] >= MIN_COVERAGE[name], "bound excludes too much — vacuous"
+    assert rep["worst_excess"] < rdsp.EXCESS_TOL, f"max excess diff {rep}"
 
 
 def test_fixture_is_committed_and_versioned(goldens):

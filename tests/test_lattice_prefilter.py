@@ -427,15 +427,11 @@ class TestBoundTolOk:
                                                   monkeypatch):
         """tolerance past saturation must bypass the aligned prefilter
         entirely (the bound could never certify — review finding), not
-        run it and fall back. The single-device aligned-Pallas branch is
-        TPU-gated, so _on_tpu is forced and the kernel entry points are
-        stubbed: this test asserts the GATING, not the kernels (those
-        have their own parity tests in tests_tpu/)."""
-        import tiresias_tpu.api.engine as engine_mod
+        run it and fall back. This test asserts the GATING, not the
+        matchers (those have their own parity tests)."""
         import tiresias_tpu.ops.match_pallas as mp
         from tiresias_tpu.api import Tiresias
         from tiresias_tpu.config import TiresiasConfig
-        from tiresias_tpu.ops import match_jax
         from tiresias_tpu.utils.audio import synth_tone
 
         eng = Tiresias(TiresiasConfig(data_dir=str(tmp_path)),
@@ -450,27 +446,17 @@ class TestBoundTolOk:
             called["pf"] += 1
             return None  # decertify -> dispatch falls to the full scan
 
-        def fake_pallas(db, query, n_frames=None, **kw):
-            # stand-in full scan with identical semantics (XLA matcher)
-            view = eng.store.search_views()[0]
-            kw.pop("interpret", None)
-            return match_jax.search_batch(
-                db, view.mask, query, n_frames, **kw
-            )
-
-        monkeypatch.setattr(engine_mod, "_on_tpu", lambda: True)
         monkeypatch.setattr(mp, "PREFILTER_K", 1)  # open the size gate
-        monkeypatch.setattr(mp, "search_batch_pallas", fake_pallas)
         monkeypatch.setattr(eng, "_aligned_prefiltered", fake_prefiltered)
-        # this test asserts the STAGED path's gate; the round-5 fused
-        # strict path would intercept first
+        # this test asserts the STAGED path's gate; the fused strict
+        # path would intercept first
         monkeypatch.setattr(eng, "_fused_strict_batch",
                             lambda *a, **k: None)
         try:
             q = synth_tone(300, 1.0, 8000)
             # tol 1.0 saturates BOTH 2-coef bound specs (s=4 coef 0 at
-            # ~0.746, s=8 coef 1 at ~0.373) — round 5 widened the gate
-            # to "any coef informative", so 0.5 no longer rejects
+            # ~0.746, s=8 coef 1 at ~0.373) — the gate asks for "any
+            # coef informative", so 0.5 does not reject
             r = eng.search_pcm("c", q, 8000, coefs=2, tolerance=1.0,
                                trunc_coef1=False, aligned=True)
             assert r.status == "FOUND"

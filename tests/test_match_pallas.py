@@ -1,7 +1,9 @@
-"""Fused Pallas matcher vs the XLA matcher and the Python oracle.
+"""Fused matchers (Triton kernels) vs the XLA matcher and the Python oracle.
 
-Interpret mode on CPU; the kernel must reproduce the reference semantics
-exactly (integer vote counts — comparisons are equalities, not tolerances).
+The kernels run in the Pallas interpreter on the CPU; they must reproduce
+the reference semantics exactly (integer vote counts — comparisons are
+equalities, not tolerances). The platform choice is checked by lowering
+for ``cuda`` without a GPU.
 """
 
 import numpy as np
@@ -56,7 +58,8 @@ def test_matches_oracle_with_band(rng, trunc):
 
 
 def test_audio_padding_gets_no_votes(rng):
-    # 37 audios → padded to 128 inside the kernel; votes sliced back
+    # 37 audios → padded to whole audio tiles inside the kernel; votes
+    # sliced back
     db, mask, _ = _random_db(rng, n_audios=37)
     q = rng.uniform(-40, 30, size=(1, 16, 2)).astype(np.float32)
     _, _, votes = search_batch_pallas(
@@ -124,27 +127,20 @@ class TestAlignedKernel:
         assert votes[0, 0] == 32  # perfect alignment on the original
         assert votes[0, 1] < 32  # shuffled copy has no consistent offset
 
-    def test_window_wider_than_chunk(self, rng, monkeypatch):
-        """Sliding-window regime where the query span exceeds the time
-        chunk (F − 1 > T_chunk): most of the window carries over at each
-        slide instead of being folded. Must still equal the XLA matcher
+    def test_window_wider_than_chunk(self, rng):
+        """The query span exceeds one offset tile (F − 1 > O_t): each
+        program sees only part of the window's offsets and the max over
+        offset tiles runs in XLA. Must still equal the XLA matcher
         bit-for-bit."""
         import tiresias_tpu.ops.match_pallas as mp
 
-        # t=256, f=96, coefs=2: force chunk=32 < f−1=95 → o_buf=128,
-        # carry-over of 96 rows per slide
-        monkeypatch.setattr(
-            mp, "_VMEM_MATCH_BUDGET",
-            4 * 128 * mp._aligned_rows(32, 96, 2, sliding=True),
-        )
-        assert mp._aligned_time_chunk(256, 96, 2) == 32
-
+        assert 96 - 1 > mp.ALIGNED_O_TILE
         db = rng.uniform(-30, 20, size=(3, 256, 2)).astype(np.float32)
         db[1, 240:] = PAD_VALUE
-        q = db[1, 100:196][None]  # 96-frame excerpt straddling chunks
+        q = db[1, 100:196][None]  # 96-frame excerpt straddling tiles
         qj, active, use2 = match_jax.prepare_query(q, None, trunc_coef1=False)
-        votes_p = mp.match_votes_pallas_aligned(
-            db, qj, active, use2, 0.1, coefs=2, interpret=True
+        votes_p = mp.fused_votes(
+            db, qj, active, use2, 0.1, coefs=2, aligned=True, interpret=True
         )
         mask = db[:, :, 0] > -1e5
         votes_x = match_jax.match_votes(
@@ -597,89 +593,107 @@ class TestAlignedPrefilter:
 
 
 class TestKernelFitGates:
-    """Dispatch gates for the fused kernels, calibrated on real hardware
-    (every OK/FAIL expectation below was measured on a TPU chip: compiles
-    marked OK ran and returned correct maxima; FAILs died in Mosaic)."""
+    """The kernels' stated shape rules, the platform choice, and the
+    index-array row path — all checked on the CPU."""
 
     def test_query_fit_budget(self):
-        from tiresias_tpu.ops.match_pallas import pallas_query_fits
+        from tiresias_tpu.ops.match_pallas import _query_rows
 
-        assert pallas_query_fits(937, 2)     # 30 s window, dialplan coefs
-        assert pallas_query_fits(18750, 2)   # 10-min serve window — OK on TPU
-        assert pallas_query_fits(12800, 8)   # 450 KiB block — OK on TPU
-        assert not pallas_query_fits(20000, 8)  # over the 512 KiB budget
+        q = np.arange(2 * 94 * 2, dtype=np.float32).reshape(2, 94, 2)
+        active = np.ones((2, 94), bool)
+        active[1, 50:] = False
+        rows = np.asarray(_query_rows(q, active, active, 2))
+        # powers of two in both kernel-visible dims
+        assert rows.shape == (2, 4, 128)
+        assert (rows[1, 0, 50:94] == 1e6).all()  # inactive → INACTIVE_Q
+        np.testing.assert_array_equal(rows[0, 1, :94], q[0, :, 1])
 
     def test_aligned_fit_budget(self):
-        from tiresias_tpu.ops.match_pallas import aligned_kernel_fits
-
-        assert aligned_kernel_fits(128, 937, 8)     # bench config
-        assert aligned_kernel_fits(3072, 937, 2)    # 11.0 MiB — OK on TPU
-        assert aligned_kernel_fits(128, 18750, 2)   # big accumulator — OK
-        # oversize db tiles are now served by time-chunking: these two were
-        # unchunked VMEM failures (14.1 MiB / 26 MiB by the model)
-        assert aligned_kernel_fits(4096, 128, 2)
-        assert aligned_kernel_fits(4096, 937, 8)
-        assert aligned_kernel_fits(1024, 93, 8)     # aligned-scale bench
-        # tier length is unbounded now: the sliding window streams time
-        # chunks through a fixed VMEM footprint
-        assert aligned_kernel_fits(8192, 93, 2)
-        assert aligned_kernel_fits(131072, 937, 2)  # hours-long audio tier
-        # one query-window of offsets alone busts VMEM — no chunking helps
-        assert not aligned_kernel_fits(128, 25600, 2)
-        # window-dominated MULTI-chunk shape: every chunk pays the window
-        # PLUS the slide's carried copy (~2×18752 rows), so no divisor
-        # fits — must reject, not fail Mosaic compilation at serve time
-        assert not aligned_kernel_fits(16384, 18750, 2)
-
-    def test_aligned_time_chunk_selection(self):
-        from tiresias_tpu.ops.match_pallas import _aligned_time_chunk
-
-        # fits whole: chunk == t
-        assert _aligned_time_chunk(128, 937, 8) == 128
-        # t=1024, f=93, coefs=8: budget_rows=1020 → largest divisor 512
-        assert _aligned_time_chunk(1024, 93, 8) == 512
-        # accumulator alone over budget → None
-        assert _aligned_time_chunk(128, 25600, 2) is None
-
-    def test_bag_fit_budget(self):
-        from tiresias_tpu.ops.match_pallas import bag_kernel_fits
-
-        assert bag_kernel_fits(4096, 64, 2)      # 12.0 MiB — OK on TPU
-        assert not bag_kernel_fits(8192, 64, 2)  # 24 MiB — failed on TPU
-        assert not bag_kernel_fits(112500, 64, 2)  # hour-long audio tier
-
-    def test_oversize_shapes_raise_cleanly(self, rng):
-        """Callers bypassing the engine gate get a ValueError, not a
-        Mosaic compile failure."""
         from tiresias_tpu.ops.match_pallas import (
-            match_votes_pallas,
-            match_votes_pallas_aligned,
+            MAX_DB_ELEMS,
+            aligned_kernel_serves,
         )
 
-        db = rng.uniform(-1, 1, size=(4, 8192, 2)).astype(np.float32)
-        q = np.zeros((1, 64, 2), np.float32)
-        act = np.ones((1, 64), bool)
-        with pytest.raises(ValueError, match="VMEM/SMEM"):
-            match_votes_pallas(db, q, act, act, 0.1, coefs=2, interpret=True)
-        # the sliding window serves any multiple-of-8 tier, so only a
-        # query whose offset window alone busts VMEM rejects now
-        q_big = np.zeros((1, 25600, 2), np.float32)
-        act_big = np.ones((1, 25600), bool)
-        with pytest.raises(ValueError, match="VMEM/SMEM"):
-            match_votes_pallas_aligned(
-                db, q_big, act_big, act_big, 0.1, coefs=2, interpret=True
-            )
+        assert aligned_kernel_serves(8, 100_000 * 1024 * 8)  # accuracy mode
+        assert aligned_kernel_serves(2, 128 * 131_072 * 2)   # hours-long tier
+        assert not aligned_kernel_serves(2, MAX_DB_ELEMS + 1)
+        # a tile reshapes to [A_t, O_t, C]: C must be a power of two
+        assert not aligned_kernel_serves(3, 1000)
+        assert aligned_kernel_serves(1, 1000)
 
-    def test_aligned_chunked_matches_xla(self, rng, monkeypatch):
-        """Time-chunked aligned kernel is bit-identical to the XLA aligned
-        matcher. The budget is patched down so a small interpret-mode shape
-        actually exercises multi-chunk accumulation (4 chunks of 64)."""
+    def test_aligned_time_chunk_selection(self):
+        """Offset tiles cover every offset bucket exactly once: the
+        kernel's output spans ceil((T + F − 1) / O_t) tiles."""
+        import jax
+
         import tiresias_tpu.ops.match_pallas as mp
 
-        # t=256, f=24, coefs=2: o_pad=280; budget 512*(280+6*100) gives
-        # budget_rows=100 → chunk=64 (largest divisor of 256 ≤ 100)
-        monkeypatch.setattr(mp, "_VMEM_MATCH_BUDGET", 512 * (280 + 6 * 100))
-        assert mp._aligned_time_chunk(256, 24, 2) == 64
+        t, f = 384, 70
+        n_o = -(-(t + f - 1) // mp.ALIGNED_O_TILE)
+        jaxpr = jax.make_jaxpr(
+            lambda d, q, a, u: mp._kernel_votes(
+                d, q, a, u, np.float32(0.1), None, coefs=2, aligned=True,
+                interpret=True,
+            )
+        )(np.zeros((5, t, 2), np.float32), np.zeros((1, f, 2), np.float32),
+          np.ones((1, f), bool), np.ones((1, f), bool))
+        assert f"1,{n_o},{mp.ALIGNED_A_TILE}" in str(jaxpr).replace(" ", "")
+
+    def test_bag_fit_budget(self):
+        from tiresias_tpu.ops.match_pallas import (
+            BAG_TILE_ELEMS,
+            MAX_DB_ELEMS,
+            bag_kernel_serves,
+        )
+
+        assert bag_kernel_serves(128, 102_400 * 128 * 2)  # dialplan store
+        assert bag_kernel_serves(BAG_TILE_ELEMS, 10)
+        assert bag_kernel_serves(3000, 10)  # pads to 4096
+        assert not bag_kernel_serves(BAG_TILE_ELEMS + 1, 10)
+        assert not bag_kernel_serves(112_500, 10)  # hour-long audio tier
+        assert not bag_kernel_serves(128, MAX_DB_ELEMS + 1)
+
+    def test_oversize_shapes_raise_cleanly(self, rng, caplog):
+        """A shape the bag kernel cannot serve runs the XLA form — with a
+        warning that names the rule — and stays exact."""
+        import logging
+
+        from tiresias_tpu.ops.match_pallas import fused_votes
+
+        db = rng.uniform(-1, 1, size=(3, 8192, 2)).astype(np.float32)
+        q = db[1:2, 100:164].copy()
+        act = np.ones((1, 64), bool)
+        with caplog.at_level(logging.WARNING):
+            got = fused_votes(db, q, act, act, 0.1, coefs=2, interpret=True)
+        assert "cannot serve" in caplog.text
+        want = match_jax.match_votes(
+            db, np.ones(db.shape[:2], bool), q, act, act, 0.1, coefs=2
+        )
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+    def test_aligned_non_power_of_two_coefs_run_xla(self, rng, caplog):
+        """A 3-coefficient store is refused by the aligned kernel's rule
+        and served, exactly, by the XLA form."""
+        import logging
+
+        from tiresias_tpu.ops.match_pallas import fused_votes
+
+        db, mask, _ = _random_db(rng, n_audios=6, t=128, c=3)
+        q = db[2:3, 10:30].copy()
+        qj, act, u2 = match_jax.prepare_query(q, None, trunc_coef1=False)
+        with caplog.at_level(logging.WARNING):
+            got = fused_votes(db, qj, act, u2, 0.2, coefs=3, aligned=True,
+                              interpret=True)
+        assert "cannot serve" in caplog.text
+        want = match_jax.match_votes(db, mask, qj, act, u2, 0.2, coefs=3,
+                                     aligned=True)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+    def test_aligned_chunked_matches_xla(self, rng):
+        """Aligned votes over a tier longer than one offset tile and an
+        audio count that is no multiple of the audio tile are
+        bit-identical to the XLA aligned matcher."""
+        import tiresias_tpu.ops.match_pallas as mp
 
         db = rng.uniform(-30, 20, size=(5, 256, 2)).astype(np.float32)
         db[2, 200:] = -1e6  # PAD_VALUE rows
@@ -687,8 +701,8 @@ class TestKernelFitGates:
             [db[2, 100:124, :], rng.uniform(-30, 20, (24, 2))]
         ).astype(np.float32)
         qj, active, use2 = match_jax.prepare_query(q, None, trunc_coef1=False)
-        votes_p = mp.match_votes_pallas_aligned(
-            db, qj, active, use2, 0.1, coefs=2, interpret=True
+        votes_p = mp.fused_votes(
+            db, qj, active, use2, 0.1, coefs=2, aligned=True, interpret=True
         )
         mask = (db[:, :, 0] > -1e5)
         votes_x = match_jax.match_votes(
@@ -697,6 +711,60 @@ class TestKernelFitGates:
         np.testing.assert_array_equal(
             np.asarray(votes_p), np.asarray(votes_x)
         )
+
+    @pytest.mark.parametrize("aligned", [False, True])
+    def test_cuda_lowering_runs_the_triton_kernel(self, rng, aligned):
+        """The one entry point picks the Triton kernel when the program is
+        lowered for the GPU and the XLA form otherwise (no GPU needed to
+        lower)."""
+        import jax
+
+        from tiresias_tpu.ops.match_pallas import fused_votes
+
+        db = rng.uniform(-30, 20, size=(40, 128, 2)).astype(np.float32)
+        q = rng.uniform(-30, 20, size=(2, 20, 2)).astype(np.float32)
+        act = np.ones((2, 20), bool)
+        fn = jax.jit(lambda d, q, a, u: fused_votes(
+            d, q, a, u, 0.1, coefs=2, aligned=aligned))
+        traced = fn.trace(db, q, act, act)
+        gpu = traced.lower(lowering_platforms=("cuda",)).as_text()
+        cpu = traced.lower(lowering_platforms=("cpu",)).as_text()
+        assert "xla.gpu.triton" in gpu
+        assert "tiresias_" in gpu  # the kernel's stable name
+        assert "xla.gpu.triton" not in cpu
+
+    @pytest.mark.parametrize("aligned", [False, True])
+    def test_rows_index_array_equals_gathered_rows(self, rng, aligned):
+        """The prefilter's rescore path: each query's own rows, read
+        through the index array, equal the votes of the gathered rows."""
+        from tiresias_tpu.ops.match_pallas import fused_votes
+
+        db, mask, _ = _random_db(rng, n_audios=50, t=128)
+        q = rng.uniform(-40, 30, size=(3, 20, 2)).astype(np.float32)
+        qj, act, u2 = match_jax.prepare_query(q, None, trunc_coef1=False)
+        rows = rng.integers(0, 50, size=(3, 16)).astype(np.int32)
+        got = fused_votes(db, qj, act, u2, 2.5, coefs=2, aligned=aligned,
+                          rows=rows, interpret=True)
+        full = match_jax.match_votes(db, mask, qj, act, u2, 2.5, coefs=2,
+                                     aligned=aligned)
+        np.testing.assert_array_equal(
+            np.asarray(got), np.take_along_axis(np.asarray(full), rows, 1)
+        )
+
+    def test_padded_query_frames_never_match_padding(self, rng):
+        """A PAD_VALUE query frame with no frame count is inactive in both
+        forms — as the masked matcher treats it."""
+        from tiresias_tpu.ops.match_pallas import fused_votes
+
+        db, mask, _ = _random_db(rng, n_audios=9, t=128)
+        q = rng.uniform(-40, 30, size=(1, 16, 2)).astype(np.float32)
+        q[0, 8:] = PAD_VALUE
+        qj, act, u2 = match_jax.prepare_query(q, None, trunc_coef1=False)
+        want = match_jax.match_votes(db, mask, qj, act, u2, 0.5, coefs=2)
+        for interpret in (False, True):
+            got = fused_votes(db, qj, act, u2, 0.5, coefs=2,
+                              interpret=interpret)
+            np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
 class TestPrefilterBandBypass:
@@ -881,8 +949,8 @@ class TestBagPrefilter:
         )
         view_m = meshed.store.search_views()[0]
         votes_m = meshed._votes_for_view(
-            view_m, qj, np.array([24]), 24, 2, 0.05, -1, -1, False, False,
-            True, False, False, "interpret",
+            view_m, qj, np.array([24]), 2, 0.05, -1, -1, False, False,
+            True, False,
         )
         assert calls["n"] >= 1, "strict config never took the bag prefilter"
         view_s = single.store.search_views()[0]

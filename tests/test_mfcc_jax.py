@@ -160,3 +160,73 @@ def test_device_constant_cache_safe_under_tracing():
     )
     out = fingerprint_padded_batch(pcm, 8000, dsp)  # eager: must not raise
     assert np.asarray(out).shape == (1, 8, 2)
+
+
+def _edge_case(name):
+    """(pcm batch as the padded entry point takes it, per-row true sample
+    counts, DspConfig, wire law) for the padded-batch edge cases."""
+    rng = np.random.default_rng(abs(hash(name)) % 2**32)
+    dsp = DspConfig()
+    hop = dsp.hop_size
+    if name == "framing_boundary":  # length an exact multiple of the hop
+        sig = [0.3 * rng.standard_normal(32 * hop)]
+    elif name == "partial_hop":  # final hop zero-padded (ceil(n/hop) frames)
+        sig = [0.3 * rng.standard_normal(32 * hop + 77)]
+    elif name == "partial_tile":  # ragged batch, rows padded to one bucket
+        sig = [0.3 * rng.standard_normal(n) for n in (5000, 2 * 4096, 300)]
+    elif name == "long_signal":  # many frames, zero halo before t=0
+        sig = [0.3 * rng.standard_normal(293 * hop)]
+    elif name == "silence_floor":  # all-zero input → floor values
+        sig = [np.zeros(8 * hop)]
+    elif name == "non_2x_overlap":  # window of four hops
+        dsp = DspConfig(hop_size=128, buf_size=512)
+        sig = [0.3 * rng.standard_normal(60 * 128)]
+    elif name in ("g711_ulaw_n_valid", "g711_alaw_n_valid"):
+        sig = [0.3 * rng.standard_normal(n) for n in (4000, 6000 - 13)]
+    else:
+        raise KeyError(name)
+    return [np.asarray(s, np.float32) for s in sig], dsp
+
+
+@pytest.mark.parametrize("name", [
+    "framing_boundary", "partial_hop", "partial_tile", "long_signal",
+    "silence_floor", "non_2x_overlap", "g711_ulaw_n_valid",
+    "g711_alaw_n_valid",
+])
+def test_padded_batch_edge_cases_match_oracle(name):
+    """The device chain's padded-batch entry point (the path every search
+    and ingest batch takes) against the float64 oracle, by the golden
+    live-path rule: framing boundaries, partial hops and ragged rows, the
+    silence floor, a non-2x window overlap, and G.711 batches whose
+    decoded padding is masked by ``n_valid``."""
+    from tiresias_tpu.ops.mfcc_jax import fingerprint_padded_batch, pad_frames_bucket
+    from tiresias_tpu.utils.audio import float_to_i16
+    from tiresias_tpu.utils.g711 import decode, encode
+
+    sigs, dsp = _edge_case(name)
+    law = None
+    if name.startswith("g711"):
+        law = name.split("_")[1]
+        sigs = [encode(float_to_i16(s), law) for s in sigs]
+        refs = [decode(s, law).astype(np.float64) / 32768.0 for s in sigs]
+    else:
+        refs = [s.astype(np.float64) for s in sigs]
+    padded, n_frames = pad_frames_bucket(sigs, dsp.hop_size, law=law)
+    n_valid = (np.array([len(s) for s in sigs], np.int32)
+               if law is not None else None)
+    got = np.asarray(fingerprint_padded_batch(padded, SR, dsp, law=law,
+                                              n_valid=n_valid))
+    for i, ref_pcm in enumerate(refs):
+        golden, bound = rdsp.oracle_stages(ref_pcm, SR, dsp)
+        ours = got[i, : n_frames[i]]
+        if name == "silence_floor":
+            # constant log-mel rows: coef 0 is exact, higher coefs are
+            # float rounding of zero — float32 gives exactly 0, i.e. the
+            # SAFE_LOG10 floor, float64 a 1e-14 residue
+            floor = 10.0 * np.log10(rdsp.VERY_SMALL_NUMBER)
+            np.testing.assert_allclose(ours[:, 0], golden[:, 0], atol=1e-4)
+            assert np.isfinite(ours).all() and (ours >= floor - 1e-3).all()
+            continue
+        rep = rdsp.parity_report(ours, golden, bound)
+        assert rep["coverage"] >= 0.9, rep
+        assert rep["worst_excess"] < rdsp.EXCESS_TOL, rep

@@ -165,10 +165,8 @@ class TestFusedMarginPath:
     def test_fused_and_host_margin_paths_agree(self, tmp_path,
                                                monkeypatch):
         """min_margin routed through the one-dispatch fused strict path
-        (mocked-TPU; kernels run interpret mode) must answer exactly
-        like the host-ranked margin path — acceptance and rejection."""
-        import tiresias_tpu.api.engine as engine_mod
-
+        must answer exactly like the host-ranked margin path —
+        acceptance and rejection."""
         # LOCAL rng, not the session fixture: the margin assertions are
         # data-marginal (a random clustered row landing near the tone
         # changes the gate's decision), so the corpus must not depend on
@@ -199,10 +197,10 @@ class TestFusedMarginPath:
         kw = dict(coefs=2, tolerance=0.1, trunc_coef1=False,
                   min_margin=0.2)
 
+        orig = eng._fused_strict_batch
+
         def run_both(q):
-            monkeypatch.setattr(engine_mod, "_on_tpu", lambda: True)
             calls = {"n": 0}
-            orig = eng._fused_strict_batch
 
             def spy(*a, **k):
                 out = orig(*a, **k)
@@ -213,7 +211,8 @@ class TestFusedMarginPath:
             monkeypatch.setattr(eng, "_fused_strict_batch", spy)
             fused = eng.search_pcm("c", q, SR, **kw)
             assert calls["n"] == 1, "fused margin path not taken"
-            monkeypatch.setattr(engine_mod, "_on_tpu", lambda: False)
+            monkeypatch.setattr(eng, "_fused_strict_batch",
+                                lambda *a, **k: None)
             host = eng.search_pcm("c", q, SR, **kw)
             return fused, host
 

@@ -1,7 +1,7 @@
 """Analysis profiles + multi-samplerate golden parity.
 
 The reference analyses at each file's native rate (DEF_AUBIO_SAMPLERATE 0,
-/root/reference/src/fp_handler.c:37,612); the JAX/Pallas chains must match
+/root/reference/src/fp_handler.c:37,612); the JAX chains must match
 the float64 golden model at every deployment samplerate and profile, not
 just 8 kHz telephony.
 """
@@ -10,8 +10,7 @@ import numpy as np
 import pytest
 
 from tiresias_tpu.ops import reference_dsp
-from tiresias_tpu.ops.mfcc_jax import fingerprint_signal
-from tiresias_tpu.ops.mfcc_pallas import fingerprint_padded_batch_pallas
+from tiresias_tpu.ops.mfcc_jax import fingerprint_padded_batch, fingerprint_signal
 from tiresias_tpu.profiles import MUSIC, PROFILES, TELEPHONY, WIDEBAND, get_profile
 
 
@@ -59,14 +58,14 @@ class TestMultiRateGolden:
         assert close.mean() > 0.95, f"{close.mean():.3f} within tolerance"
 
     def test_pallas_matches_golden(self, profile, sr, rng):
+        """The padded-batch entry point (the device path every search and
+        ingest batch takes) against the golden model."""
         pcm = _speechy(rng, sr)
         golden = reference_dsp.fingerprint_signal(pcm, sr, profile.dsp)
         hop = profile.dsp.hop_size
         n = len(pcm) // hop * hop
         got = np.asarray(
-            fingerprint_padded_batch_pallas(
-                pcm[None, :n], sr, profile.dsp, interpret=True
-            )
+            fingerprint_padded_batch(pcm[None, :n], sr, profile.dsp)
         )[0]
         golden = golden[: got.shape[0]]
         close = np.abs(got - golden) <= 0.02

@@ -94,8 +94,8 @@ class TestShardedSearch:
 
 class TestShardedPallasMatcher:
     def test_matches_xla_matcher(self, rng):
-        """Per-shard fused Pallas matcher (interpret mode on the CPU mesh)
-        must equal the single-device XLA matcher."""
+        """Per-shard Triton matcher (interpret mode on the CPU mesh) must
+        equal the single-device XLA matcher."""
         from tiresias_tpu.parallel.sharding import sharded_votes_pallas
 
         mesh = make_mesh(4, 2)

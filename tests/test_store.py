@@ -265,7 +265,7 @@ class TestIncrementalViews:
         mask = np.asarray(v.mask)
         assert not mask[1].any()  # dead row fully masked
         assert mask[0].any() and mask[2].any()
-        # value-masked too: the Pallas kernels (no mask operand) see only
+        # value-masked too: the fused matchers (no mask operand) see only
         # PAD_VALUE in the dead row
         from tiresias_tpu.ops.mfcc_jax import PAD_VALUE as PV
 
@@ -346,7 +346,7 @@ class TestIncrementalViews:
     def test_tombstoned_audio_never_matches(self):
         """End-to-end: search after a delete must not return the victim on
         ANY matcher path — XLA (mask-masked), lattice (value-map-masked),
-        and both Pallas kernels (VALUE-masked: no mask operand at all)."""
+        and both fused matchers (VALUE-masked: no mask operand at all)."""
         import numpy as np
 
         from tiresias_tpu.ops import match_jax

@@ -1,11 +1,11 @@
-"""tiresias-tpu: TPU-native audio fingerprinting and recognition.
+"""tiresias: accelerator-native audio fingerprinting and recognition.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 ``pchero/asterisk-tiresias`` (an Asterisk C module that fingerprints audio
 with aubio MFCCs and matches live audio against a SQLite DB). Nothing is
-translated: the MFCC chain is a batched/fused TPU kernel, the SQLite match
-loop is an HBM-resident fingerprint matrix with a blocked tolerance-vote
-kernel, and streaming recognition is a batched sliding-window scorer.
+translated: the MFCC chain is one batched XLA program on the device, the
+SQLite match loop is an HBM-resident fingerprint matrix with fused
+tolerance-vote kernels (Triton on the GPU), and streaming recognition is a batched sliding-window scorer.
 """
 
 from tiresias_tpu.config import (

@@ -1,4 +1,4 @@
-"""api subpackage of tiresias-tpu: the library front door."""
+"""api subpackage of tiresias: the library front door."""
 
 from tiresias_tpu.api.engine import (
     NOT_FOUND,

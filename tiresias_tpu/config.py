@@ -1,4 +1,4 @@
-"""Configuration system for tiresias-tpu.
+"""Configuration system for tiresias.
 
 Mirrors the reference's two-scope config model — a ``[global]`` section with match
 parameters plus one section per fingerprint context naming a ``directory`` —

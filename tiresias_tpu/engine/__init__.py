@@ -1,4 +1,4 @@
-"""engine subpackage of tiresias-tpu: catalog/filesystem sync + ingest."""
+"""engine subpackage of tiresias: catalog/filesystem sync + ingest."""
 
 from tiresias_tpu.engine.sync import (
     SyncReport,

@@ -1,4 +1,4 @@
-"""models subpackage of tiresias-tpu: the analysis-model registry.
+"""models subpackage of tiresias: the analysis-model registry.
 
 This framework's "model families" are fingerprint analysis profiles — named
 (DspConfig, MatchConfig) presets over the same kernel stack (the reference

@@ -1,1 +1,1 @@
-"""DSP + match kernels: NumPy golden model, JAX/XLA, and Pallas TPU paths."""
+"""DSP + match kernels: NumPy golden model, JAX/XLA, and Pallas (Triton) paths."""

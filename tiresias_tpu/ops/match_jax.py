@@ -1,6 +1,6 @@
-"""Batched JAX/XLA tolerance-vote matcher (TPU compute path).
+"""Batched JAX/XLA tolerance-vote matcher (the plain XLA form).
 
-TPU-first replacement for the reference's per-frame SQLite range-scan loop
+Replacement for the reference's per-frame SQLite range-scan loop
 (/root/reference/src/fp_handler.c:287-373): the fingerprint DB lives in HBM
 as a padded matrix ``[n_audios, max_frames, n_coefs]`` with a validity mask,
 and a whole batch of queries is matched in one jitted computation:
@@ -17,8 +17,8 @@ per-frame max2-condition drops) matches the reference exactly — see
 The audio axis is processed in blocks via ``lax.map`` so peak memory stays
 at ``B·F·A_block·T`` booleans regardless of DB size; XLA fuses the
 broadcast-compare-reduce so nothing of that size is materialised. The
-hand-fused Pallas kernel lives in :mod:`tiresias_tpu.ops.match_pallas`; the
-sharded multi-chip driver in :mod:`tiresias_tpu.parallel.sharded_match`.
+Triton kernels of the same votes live in :mod:`tiresias_tpu.ops.match_pallas`;
+the sharded multi-device driver in :mod:`tiresias_tpu.parallel.sharding`.
 """
 
 from __future__ import annotations
@@ -92,7 +92,7 @@ def prepare_query(
 )
 def match_votes(
     db: jax.Array,
-    db_mask: jax.Array,
+    db_mask: jax.Array | None,
     q: jax.Array,
     active: jax.Array,
     use2: jax.Array,
@@ -105,7 +105,9 @@ def match_votes(
 
     Args:
       db: ``[A, T, C]`` stored fingerprints (PAD_VALUE in padding).
-      db_mask: ``[A, T]`` bool validity.
+      db_mask: ``[A, T]`` bool validity, or None when padding frames
+        hold PAD_VALUE (the store layout) and the tolerance is below
+        ``match_pallas.PALLAS_TOL_MAX``, which no band can then reach.
       q, active, use2: from :func:`prepare_query`.
       tolerance: scalar; inclusive band.
       coefs: number of matched coefficients (static; reference max is 2).
@@ -115,7 +117,7 @@ def match_votes(
         similar-sounding corpora. With ``aligned=True`` a query frame's hit
         at stored frame t contributes to offset bucket ``t − f`` and the
         score is the best single offset's hit count — Shazam-style
-        time-consistent matching, exact on TPU via one gather that
+        time-consistent matching, exact via one gather that
         re-indexes the hit tensor from (frame, time) to (frame, offset)
         space followed by a sum-over-frames and max-over-offsets.
     """
@@ -126,6 +128,8 @@ def match_votes(
 
     n_blocks = -(-a // audio_block)
     pad = n_blocks * audio_block - a
+    if db_mask is None:
+        db_mask = jnp.ones((a, t), bool)  # fused into the compare below
     db_p = jnp.pad(db, ((0, pad), (0, 0), (0, 0)))
     mask_p = jnp.pad(db_mask, ((0, pad), (0, 0)))
     db_blocks = db_p.reshape(n_blocks, audio_block, t, c)

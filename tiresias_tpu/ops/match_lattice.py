@@ -1,4 +1,4 @@
-"""Lattice matcher: MXU-native exact search for the dialplan path.
+"""Lattice matcher: matmul-native exact search for the dialplan path.
 
 The reference's dialplan always searches with ``coefs=1`` and truncates the
 query's max1 to an integer (/root/reference/src/application_handler.c:180,
@@ -16,8 +16,8 @@ This is bit-exact w.r.t. the reference semantics (PARITY.md §3) because all
 query frames sharing an integer value have identical hit outcomes per audio,
 and the per-frame "one vote per audio" rule (GROUP BY) is exactly the
 ∃t — i.e. min_t — test. The O(B·F·A·T) broadcast-compare of the general
-matcher becomes an O(A·T·K) one-off build plus an O(B·K·A) MXU matmul per
-query — at 10k tracks ~1.3 GFLOP of VPU compares collapse into a ~5 MFLOP
+matcher becomes an O(A·T·K) one-off build plus an O(B·K·A) matmul per
+query — at 10k tracks ~1.3 G elementwise compares collapse into a ~5 MFLOP
 matmul. Counts and 0/1 hits are small integers, exact in float32.
 
 Band-ignore (/root/reference/src/fp_handler.c:293-306) is a k-range mask on
@@ -25,8 +25,8 @@ the histogram — also exact, since the filter tests the truncated value.
 
 Limits: coefs=2 needs the joint per-frame condition (min over t does not
 factorize across coefficients) and the D8 no-truncation mode has real-valued
-queries — both stay on :mod:`tiresias_tpu.ops.match_jax` /
-``match_pallas``. The engine dispatches automatically.
+queries — both take the fused matchers (:mod:`tiresias_tpu.ops.match_pallas`)
+or :mod:`tiresias_tpu.ops.match_jax`. The engine dispatches automatically.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ from tiresias_tpu.ops import match_jax
 # whose truncated value still falls outside the lattice (NaN, ±inf, or a
 # pathological magnitude) contribute ZERO votes — not an edge-bucket vote —
 # matching match_jax, whose in-range DB values cannot sit within any sane
-# tolerance of such a value. K is a multiple of 128 for clean MXU tiling.
+# tolerance of such a value. K is a multiple of 128 for clean matmul tiling.
 K_MIN = -512
 K_SIZE = 640  # covers [-512, 127]
 
@@ -62,8 +62,8 @@ def build_value_map(
     exact distance-transform math). Rows are independent, so large HOST
     (numpy) inputs are processed in FIXED-shape chunks of ``_BUILD_CHUNK``
     rows: ONE compiled executable serves every DB size (per frame-tier),
-    instead of a fresh — and, over remote-compile transports, unboundedly
-    slow — XLA compile each time the padded audio count grows, and each
+    instead of a fresh XLA compile each time the padded audio count
+    grows, and each
     chunk's H2D upload overlaps the previous chunk's compute. Large
     DEVICE-array inputs (e.g. a stale-view rebuild from ``view.db``) are
     chunked too, via ``lax.map`` inside one jit: a single-call distance
@@ -356,10 +356,9 @@ def _frame_buckets(q0, active, band_lo, band_hi, k_min: int, k_size: int):
 
 
 def _histogram(q0, active, band_lo, band_hi, k_min: int, k_size: int):
-    """Query histogram ``C [B, K]`` — exact counts via scatter-add. NOT a
-    broadcast one-hot compare + sum: that lowering takes minutes to
-    compile on the TPU toolchain (measured 177 s vs 0.5 s for the
-    scatter at A=10k)."""
+    """Query histogram ``C [B, K]`` — exact counts via scatter-add, not a
+    broadcast one-hot compare + sum (whose lowering was far slower to
+    compile)."""
     idx, valid = _frame_buckets(q0, active, band_lo, band_hi, k_min, k_size)
     b = q0.shape[0]
     c = jnp.zeros((b, k_size), jnp.float32)
@@ -367,12 +366,13 @@ def _histogram(q0, active, band_lo, band_hi, k_min: int, k_size: int):
 
 
 def _hit_matmul(c, value_map, tol):
-    """``votes [B, A] = C @ (M <= tol).T`` — the single MXU contraction.
+    """``votes [B, A] = C @ (M <= tol).T`` — the single contraction.
     Contract on k of BOTH operands (no transpose): materialising H.T
-    through HBM cost ~25x the matmul itself at 1M tracks (measured 77 ms
-    vs 3 ms device time); without the transpose XLA fuses the tolerance
-    compare into the matmul's operand read (for the uint8-quantized maps
-    that read is a QUARTER of the f32 bytes)."""
+    through device memory would cost far more than the matmul itself at
+    1M tracks; without the transpose XLA can fuse the tolerance compare
+    into the matmul's operand read (for the uint8-quantized maps that
+    read is a QUARTER of the f32 bytes). HIGHEST precision: the 0/1 and
+    count operands are exact in float32, not in TF32 or bf16."""
     h = (value_map <= tol).astype(jnp.float32)  # [A, K]
     votes = jax.lax.dot_general(
         c, h, dimension_numbers=(((1,), (1,)), ((), ())),
@@ -463,8 +463,8 @@ def lattice_prefiltered_votes(
     tiebreak exact — a certified winner cannot tie any unselected audio.
 
     The rescore gathers the ``[B, k, K]`` candidate ROWS of the f32 map
-    (contiguous sublanes — measured ~25x faster than a per-(candidate,
-    frame) element gather on TPU) and contracts them against the same
+    (contiguous rows, not a per-(candidate, frame) element gather) and
+    contracts them against the same
     query histogram as the full scan; prefilter traffic is the uint8
     bound scan (A·K bytes) + a few MB of candidate rows: a ~4x
     read-traffic reduction over the full f32 scan at any large A.
@@ -503,9 +503,8 @@ def lattice_prefiltered_votes(
 
 # Candidate budget of the lattice prefilter. Smaller than the aligned
 # prefilter's 1024: the rescore here is a tiny row-gather + matmul (not a
-# Pallas kernel launch), so the pipeline cost is bound-scan + top-k
-# selection — and approx_max_k over [B, 1M] drops ~0.6 ms/query going
-# 1024 -> 256 (measured), while 256 candidates still dwarf any separable
+# kernel launch), so the pipeline cost is bound-scan + top-k selection —
+# which shrinks with k — while 256 candidates still dwarf any separable
 # corpus's near-tie population (non-separable ones de-certify either way
 # and fall back).
 LATTICE_PREFILTER_K = 256
@@ -597,9 +596,8 @@ def _prefilter_core(
     # exact rescore: CONTIGUOUS candidate-row gather from the f32 map +
     # the same histogram contraction as lattice_votes, restricted to the
     # candidate rows (votes = Σ_k C[b,k]·(M[a,k] <= tol) — identical
-    # math, so parity is structural). Row gather beats a per-(candidate,
-    # frame) element gather ~25x here (measured 1.2 ms -> 0.05 ms at 1M:
-    # TPU gathers like whole sublanes, not scattered elements).
+    # math, so parity is structural). Whole rows, not a per-(candidate,
+    # frame) element gather.
     m_rows = vm[idx]  # [B, k, K] f32
     hits = (m_rows <= tol).astype(jnp.float32)
     votes_k = jnp.einsum(

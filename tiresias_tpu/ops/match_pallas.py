@@ -1,29 +1,44 @@
-"""Fused Pallas tolerance-vote matcher (generic search path).
+"""Fused tolerance-vote matchers: Pallas kernels through Triton for the GPU.
 
-Hand-fused kernel for the configurations the MXU lattice path
-(:mod:`tiresias_tpu.ops.match_lattice`) cannot serve — ``coefs=2`` (the
-joint per-frame condition does not factorize over the value lattice) and the
-D8 no-truncation mode. Replaces :func:`tiresias_tpu.ops.match_jax.match_votes`'
-blocked XLA broadcast with a kernel that keeps a DB tile resident in VMEM
-while sweeping every query frame over it:
+Two matchers behind ONE entry point, :func:`fused_votes`, that picks the
+implementation by the platform the program is lowered for
+(``lax.platform_dependent``):
 
-    per audio tile i (grid), per query frame f (fori):
-      ok = |d0 − q0[f]| ≤ tol  [∧ (|d1 − q1[f]| ≤ tol ∨ ¬use2[f])]
-      votes[i·T .. i·T+T) += any_T(ok)
+* bag-of-frames votes (``aligned=False``), the reference's own semantics
+  (PARITY.md §3): one vote per query frame per audio when ANY stored frame
+  is inside the tolerance band;
+* offset-consistent votes (``aligned=True``, PARITY.md D9): the best
+  single time offset's hit count.
 
-One kernel invocation scores ONE query against the whole DB; the batch axis
-is ``lax.map``-ed over inside the same jit (device-side launches, no host
-round trips). Mosaic block-shape rules drive this design: an output block
-must either tile (8k, 128k) or equal the array's trailing dims, so the
-kernel owns the full ``[1, A_pad]`` output and each grid step writes its
-disjoint 128-lane slice.
+On a ``cuda`` lowering the Triton kernel runs; everywhere else the XLA form
+(:func:`tiresias_tpu.ops.match_jax.match_votes`) does. ``interpret=True``
+(tests only) runs the kernel in the Pallas interpreter on any platform. A
+shape the kernel cannot serve (:func:`bag_kernel_serves`,
+:func:`aligned_kernel_serves`) runs the XLA form on every platform, and a
+warning names the rule that refused it.
 
-Masking is value-encoded, mirroring the store's layout: padding/invalid DB
-frames hold ``PAD_VALUE`` (−1e6) so no tolerance band can reach them, and
-inactive query frames are pre-set to ``+1e6`` on the host side — the kernel
-needs no boolean operands. Semantics are identical to match_jax / the SQL
-oracle (PARITY.md §3): one vote per frame per audio, inclusive band,
-out-of-band max2 drops only the max2 condition.
+Kernel design (Hopper: blocks run in parallel and in no order, so nothing
+carries between programs):
+
+* bag — grid ``(audio tiles, queries)``. A program loads its
+  ``[A_t, T]`` DB tile per coefficient once (``A_t·T_pad ≤ 4096`` values,
+  registers), then loops over the query frames inside the block:
+  ``votes += any_T(|d0 − q0[f]| ≤ tol ∧ …)``.
+* aligned — grid ``(audio tiles, offset tiles, queries)``. A program owns
+  an ``[A_t, O_t]`` int32 tile of offset buckets (``o = t − f + F − 1``);
+  for each query frame it loads the DB window ``t = o − F + 1 + f`` — per
+  row one contiguous run of ``O_t·C`` values, so the loads coalesce —
+  under a mask, ANDs the coefficients' band tests in registers and adds
+  the hits. A second pass in XLA takes the max over offset tiles.
+
+Both kernels can read their rows through an index array (``rows``,
+``[B, K]``): the certified prefilter rescores each query's own top-K
+candidates without gathering a ``[B, K, T, C]`` copy of the DB.
+
+Masking is value-encoded, mirroring the store's layout: padding and
+tombstoned DB frames hold ``PAD_VALUE`` (−1e6) so no tolerance band can
+reach them, and inactive query frames are set to ``INACTIVE_Q`` (+1e6) —
+valid while ``tolerance < PALLAS_TOL_MAX``, which callers check.
 """
 
 from __future__ import annotations
@@ -34,425 +49,276 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from tiresias_tpu.config import DEF_SEARCH_TOLERANCE
 from tiresias_tpu.ops import match_jax
 from tiresias_tpu.ops.mfcc_jax import PAD_VALUE
+from tiresias_tpu.utils.logging import get_logger
 
-AUDIO_TILE = 128
+log = get_logger(__name__)
+
 INACTIVE_Q = 1.0e6  # pushed out of every tolerance band (PAD_VALUE is -1e6)
-
-
-def _query_rows(q, active, use2, coefs: int):
-    """Shared operand prep for BOTH fused matchers: query coef values with
-    the active mask value-encoded into row 0 (INACTIVE_Q falls outside
-    every tolerance band) plus the use2 flag as the last row — one
-    definition so a masking-semantics fix cannot reach only one kernel."""
-    q_rows = [jnp.where(active, q[..., 0], INACTIVE_Q)]
-    q_rows += [q[..., ci] for ci in range(1, coefs)]
-    q_rows.append(use2.astype(jnp.float32))
-    return jnp.stack(q_rows, axis=1)
-
-
-def _make_kernel(coefs: int):
-    """Kernel for a static coefficient count.
-
-    Inputs: ``q_ref [coefs+1, F]`` SMEM — rows 0..coefs-1 are the query
-    values, the last row is the use2 flag (≤0 drops the coef-2 condition,
-    PARITY.md §3.3); ``d_ref [coefs, AT, T]`` VMEM (coef-major so each
-    coef's slice has full lane utilisation); ``tol_ref`` SMEM.
-    """
-
-    def kernel(q_ref, d_ref, tol_ref, out_ref):
-        tol = tol_ref[0]
-        f_total = q_ref.shape[1]
-        d = [d_ref[c] for c in range(coefs)]  # [AT, T] each
-
-        def body(f, votes):
-            ok = jnp.abs(d[0] - q_ref[0, f]) <= tol
-            for c in range(1, coefs):
-                okc = jnp.abs(d[c] - q_ref[c, f]) <= tol
-                if c == 1:
-                    # use2 <= 0 → max2 condition dropped (PARITY.md §3.3);
-                    # coefs > 2 (extension) uses plain AND semantics
-                    okc |= q_ref[coefs, f] <= 0.0
-                ok &= okc
-            # Mosaic has no bool reductions: any-over-T as an f32 max
-            return votes + ok.astype(jnp.float32).max(axis=1)
-
-        votes = jax.lax.fori_loop(
-            0, f_total, body, jnp.zeros((d[0].shape[0],), jnp.float32)
-        )
-        i = pl.program_id(0)
-        out_ref[
-            0, pl.ds(pl.multiple_of(i * AUDIO_TILE, AUDIO_TILE), AUDIO_TILE)
-        ] = votes
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("coefs", "interpret"))
-def match_votes_pallas(
-    db: jax.Array,
-    q: jax.Array,
-    active: jax.Array,
-    use2: jax.Array,
-    tolerance: jax.Array | float,
-    coefs: int = 1,
-    interpret: bool = False,
-) -> jax.Array:
-    """Votes ``[B, A]`` (int32) — fused-kernel ``match_votes``.
-
-    Args:
-      db: ``[A, T, C]`` with PAD_VALUE in padding (store layout); T must be
-        a multiple of 128 (the store's FRAME_BUCKET guarantees it).
-      q / active / use2: from :func:`match_jax.prepare_query`.
-    """
-    a, t, c = db.shape
-    b, f, _ = q.shape
-    if coefs < 1 or coefs > c:
-        raise ValueError(f"coefs must be in [1, {c}]")
-    a_pad = -(-a // AUDIO_TILE) * AUDIO_TILE
-    if not bag_kernel_fits(t, f, coefs, a_pad):
-        raise ValueError(
-            f"bag kernel cannot serve tier={t}, query_frames={f}, "
-            f"coefs={coefs}, audios={a} within its VMEM/SMEM budgets — "
-            f"use the XLA matcher (see bag_kernel_fits)"
-        )
-    tol = jnp.asarray(tolerance, dtype=jnp.float32).reshape(1)
-
-    if a_pad != a:
-        # padding audios hold PAD_VALUE → zero votes
-        db = jnp.pad(db, ((0, a_pad - a), (0, 0), (0, 0)),
-                     constant_values=PAD_VALUE)
-    n_tiles = a_pad // AUDIO_TILE
-    # coef-major layout [C, A_pad, T]: each coef's [AT, T] slice keeps full
-    # lane utilisation (the [A, T, C] layout would put C in the lane dim)
-    d_cm = jnp.moveaxis(db[..., :coefs], -1, 0)
-
-    # query rows: coef values with the active mask value-encoded into row 0,
-    # plus the use2 flag as the last row
-    q_all = _query_rows(q, active, use2, coefs)  # [B, coefs+1, F]
-
-    call = pl.pallas_call(
-        _make_kernel(coefs),
-        in_specs=[
-            # per-frame scalars are read at dynamic indices inside the fori
-            # loop — that must be SMEM (Mosaic cannot prove dynamic VMEM
-            # lane alignment)
-            pl.BlockSpec((coefs + 1, f), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((coefs, AUDIO_TILE, t), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_shape=jax.ShapeDtypeStruct((1, a_pad), jnp.float32),
-        # the full [1, A_pad] output is the block; grid steps write
-        # disjoint 128-lane slices (Mosaic block-shape constraint)
-        out_specs=pl.BlockSpec((1, a_pad), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-        grid=(n_tiles,),
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=4 * f * a_pad * t * coefs,
-            bytes_accessed=4 * (a_pad * t * coefs + f * (coefs + 1) + a_pad),
-            transcendentals=0,
-        ),
-    )
-
-    def one(q_b):  # [coefs+1, F]
-        return call(q_b, d_cm, tol)[0]
-
-    votes = jax.lax.map(one, q_all)
-    return votes[:, :a].astype(jnp.int32)
-
-
-def _make_aligned_kernel(
-    coefs: int, f_total: int, t_chunk: int, o_buf: int, n_tchunks: int
-):
-    """Aligned-voting kernel (PARITY.md D9 extension as a fused device path).
-
-    Layout is TRANSPOSED vs the bag-of-frames kernel: DB tiles arrive as
-    ``[coefs, T_chunk, AT]`` — time on SUBLANES, audios on lanes — because
-    the offset accumulation writes ``acc[start : start+T_chunk, :] += ok``
-    with a dynamic start: sublane-dim dynamic slices are cheap vector shifts
-    on TPU, while lane-dim dynamic offsets force expensive relayouts. The
-    aligned score is the max over offset buckets (o = t − f + F − 1) of the
-    per-bucket hit count — the best single time-alignment, exactly
-    :func:`tiresias_tpu.ops.match_jax.match_votes` with ``aligned=True``.
-
-    The time axis is STREAMED over the second (fastest) grid dimension, so
-    the tier length is unbounded: each step holds one ``[coefs, T_chunk,
-    AT]`` db tile, and — the key observation — chunk j only touches the
-    offset window ``[j·T_chunk, (j+1)·T_chunk + F − 2]``, while offsets
-    below ``j·T_chunk`` are already complete. So a SLIDING accumulator of
-    just ``T_chunk + F − 1`` rows suffices: at each chunk boundary the
-    lowest ``T_chunk`` rows (now complete) fold into a running per-audio
-    max, the window shifts down by ``T_chunk`` (static-slice vector
-    copies), and its tail is re-zeroed. Within a chunk, frame f's hits
-    land at window-local rows ``[F−1−f, F−1−f+T_chunk)`` — the same
-    dynamic sublane slice as a monolithic kernel with T = T_chunk. VMEM
-    therefore scales with the CHUNK, not the tier: hours-long audio rows
-    stream through the same few-MB footprint, bit-identical to a
-    full-offset accumulation (votes are non-negative, so the extra zero
-    pad rows never win the max).
-    """
-
-    def kernel(q_ref, d_ref, tol_ref, out_ref, acc_ref, max_ref):
-        tol = tol_ref[0]
-        # program_id must be read at kernel top level (the interpret-mode
-        # HLO lowering doesn't substitute it inside cond branches)
-        i = pl.program_id(0)
-        j = pl.program_id(1)
-
-        @pl.when(j == 0)
-        def _start():
-            acc_ref[:] = jnp.zeros_like(acc_ref)
-            max_ref[:] = jnp.zeros_like(max_ref)
-
-        if n_tchunks > 1:  # single-chunk kernels carry no slide code at all
-
-            @pl.when(j > 0)
-            def _slide():
-                # offsets below j·T_chunk are complete: fold them into the
-                # running max, shift the window down, zero the fresh tail
-                max_ref[0, :] = jnp.maximum(
-                    max_ref[0, :], acc_ref[:t_chunk, :].max(axis=0)
-                )
-                if o_buf > t_chunk:
-                    kept = acc_ref[t_chunk:, :]  # value read pre-overwrite
-                    acc_ref[: o_buf - t_chunk, :] = kept
-                acc_ref[o_buf - t_chunk :, :] = jnp.zeros(
-                    (t_chunk, acc_ref.shape[1]), jnp.float32
-                )
-
-        d = [d_ref[c] for c in range(coefs)]  # [T_chunk, AT] each
-
-        def body(f, _):
-            ok = jnp.abs(d[0] - q_ref[0, f]) <= tol
-            for c in range(1, coefs):
-                okc = jnp.abs(d[c] - q_ref[c, f]) <= tol
-                if c == 1:
-                    okc |= q_ref[coefs, f] <= 0.0  # PARITY.md §3.3
-                ok &= okc
-            acc_ref[pl.ds(f_total - 1 - f, t_chunk), :] += ok.astype(
-                jnp.float32
-            )
-            return 0
-
-        jax.lax.fori_loop(0, f_total, body, 0)
-
-        @pl.when(j == n_tchunks - 1)
-        def _emit():
-            out_ref[
-                0,
-                pl.ds(pl.multiple_of(i * AUDIO_TILE, AUDIO_TILE), AUDIO_TILE),
-            ] = jnp.maximum(max_ref[0, :], acc_ref[:].max(axis=0))
-
-    return kernel
-
-
-# Both fused kernels read the query as an SMEM block of (coefs+1)·F f32.
-# Hardware-measured: blocks up to 450 KiB compile and run; 512 KiB is the
-# budget. Larger windows fall back to the XLA matcher instead of failing
-# Mosaic compilation.
-_SMEM_QUERY_BUDGET = 512 * 1024
-# VMEM model for the fused matchers, calibrated on hardware: the db tile
-# [coefs, T, 128] costs ~3 buffers (Mosaic pipelining + layout copies)
-# and the aligned kernel adds its [o_pad, 128] f32 accumulator:
-#   bytes = 4 * 128 * (o_pad + 3 * coefs * T)      (o_pad = 0 for bag)
-# Measured: 12.0 MiB by this model compiles and runs; 14.1 MiB fails —
-# 12.5 MiB is the verified boundary. Ineligible shapes fall back to the
-# (exact, slower) XLA matcher.
-_VMEM_MATCH_BUDGET = 12 * 1024 * 1024 + 512 * 1024
-
 
 # Value-encoded masking breaks down for absurd tolerances: INACTIVE_Q
 # (1e6) and PAD_VALUE (-1e6) sit ~1e6 away from every reachable
 # fingerprint value ([-417, 127]), so any tolerance approaching that gap
-# would let inactive query frames and padding DB frames "match". The XLA
-# matcher masks explicitly and serves such requests exactly.
+# would let inactive query frames and padding DB frames "match". The
+# masked XLA matcher serves such requests exactly.
 PALLAS_TOL_MAX = 1e5
 
-
-def pallas_query_fits(f: int, coefs: int) -> bool:
-    """Whether an F-frame query fits the fused kernels' SMEM block."""
-    return (coefs + 1) * f * 4 <= _SMEM_QUERY_BUDGET
-
-
-def bag_kernel_fits(t: int, f: int, coefs: int, a_pad: int = 0) -> bool:
-    """Whether the bag-of-frames kernel can serve (tier_frames,
-    query_frames, coefs) within its VMEM/SMEM budgets — the engine's
-    dispatch gate; ineligible shapes (e.g. hours-long audio tiers whose
-    [coefs, T, 128] db tile exceeds VMEM) run the XLA matcher.
-    ``a_pad``: padded audio-row count — the full [1, A_pad] f32 output
-    block stays VMEM-resident (out_specs), an A-dependent term the db-tile
-    model alone misses on very large unsharded views."""
-    if not pallas_query_fits(f, coefs):
-        return False
-    return 4 * 128 * 3 * coefs * t + 4 * a_pad <= _VMEM_MATCH_BUDGET
+# Bag kernel: DB values one program holds per coefficient (registers of
+# 4 warps), and the longest tier that fits one row of such a tile.
+BAG_TILE_ELEMS = 4096
+# Aligned kernel tile: audios x offset buckets per program (each offset
+# bucket carries all C coefficients: A_t·O_t·C values per loaded tile).
+ALIGNED_A_TILE = 32
+ALIGNED_O_TILE = 32
+NUM_WARPS = 4
+# Flat int32 addressing: a DB (or DB shard) must hold fewer values.
+MAX_DB_ELEMS = 2**31 - 1
 
 
-def _aligned_rows(chunk: int, f: int, coefs: int, sliding: bool) -> int:
-    """Per-step VMEM cost of the aligned kernel, in f32 [*, 128] rows:
-    the sliding [chunk + F − 1, 128] accumulator window plus ~3 buffered
-    copies of the [coefs, chunk, 128] db tile (see _VMEM_MATCH_BUDGET).
-    A multi-chunk kernel's slide additionally materialises the carried
-    window (the ``kept`` value read before the overlapping overwrite) —
-    ``o_buf − chunk`` extra rows at its peak; single-chunk kernels emit
-    no slide code (see _make_aligned_kernel) and don't pay it."""
-    o_buf = -(-(chunk + f - 1) // 8) * 8
-    rows = o_buf + 3 * coefs * chunk
-    if sliding and o_buf > chunk:
-        rows += o_buf - chunk
-    return rows
+def _pow2(n: int) -> int:
+    return 1 << max(0, (int(n) - 1).bit_length())
 
 
-def _aligned_time_chunk(
-    t: int, f: int, coefs: int, a_pad: int = 0
-) -> int | None:
-    """Largest time-chunk length the aligned kernel can hold in VMEM for
-    (tier_frames, query_frames, coefs), or None if no valid chunking
-    exists. A chunk must divide T exactly (every grid step sees a full
-    tile) and be a multiple of 8 (the chunk is the block's sublane dim).
-    The accumulator is a sliding window of chunk + F − 1 offsets (see
-    _make_aligned_kernel), so VMEM cost scales with the CHUNK, not the
-    tier — any multiple-of-8 tier length is servable as long as one
-    query-window's offsets (plus the slide's carried copy) fit.
-    ``a_pad`` reserves the resident [1, A_pad] output block's bytes."""
-    return _aligned_time_chunk_cached(
-        t, f, coefs, max(0, _VMEM_MATCH_BUDGET - 4 * a_pad)
+def bag_kernel_serves(t: int, n_elems: int) -> bool:
+    """The bag kernel's stated rule: one padded tier row (next power of
+    two of ``t`` frames) fits a program's ``BAG_TILE_ELEMS`` tile, and the
+    DB is addressable with int32 offsets."""
+    return _pow2(t) <= BAG_TILE_ELEMS and n_elems <= MAX_DB_ELEMS
+
+
+def aligned_kernel_serves(c: int, n_elems: int) -> bool:
+    """The aligned kernel's stated rule: the stored coefficient count
+    ``c`` is a power of two (a tile is reshaped to ``[A_t, O_t, c]``) and
+    the DB is addressable with int32 offsets. Tier length and query length
+    are unbounded — offsets are tiled over the grid and query frames are
+    looped."""
+    return c == _pow2(c) and n_elems <= MAX_DB_ELEMS
+
+
+def _query_rows(q, active, use2, coefs: int):
+    """Kernel query operand ``[B, R, F_pad]`` (powers of two): rows
+    ``0..coefs-1`` hold the coefficient values with the active mask
+    value-encoded into row 0, row ``coefs`` holds the use2 flag. Padded
+    frames are never read (the kernels loop over the true F)."""
+    rows = [jnp.where(active, q[..., 0], INACTIVE_Q)]
+    rows += [q[..., ci] for ci in range(1, coefs)]
+    rows.append(use2.astype(jnp.float32))
+    out = jnp.stack(rows, axis=1)  # [B, coefs+1, F]
+    b, r, f = out.shape
+    return jnp.pad(out, ((0, 0), (0, _pow2(r) - r), (0, _pow2(f) - f)),
+                   constant_values=INACTIVE_Q)
+
+
+def _frame_ok(load, q_ref, b, f, coefs: int, tol):
+    """Per-frame band test shared by both kernels: ``load(c)`` yields the
+    DB tile of coefficient ``c``; out-of-band max2 (use2 ≤ 0) drops only
+    the coef-2 condition (PARITY.md §3.3), coefs > 2 use plain AND."""
+    ok = jnp.abs(load(0) - q_ref[b, 0, f]) <= tol
+    for c in range(1, coefs):
+        okc = jnp.abs(load(c) - q_ref[b, c, f]) <= tol
+        if c == 1:
+            okc = okc | (q_ref[b, coefs, f] <= 0.0)
+        ok = ok & okc
+    return ok
+
+
+def _row_offsets(rows_ref, b, i, a_t: int, n_rows: int, row_stride: int):
+    """Flat offsets ``[a_t]`` of this program's DB rows and their
+    validity: the tile's own rows, or the rows its index array names."""
+    a_idx = i * a_t + jnp.arange(a_t)
+    valid = a_idx < n_rows
+    a_idx = jnp.minimum(a_idx, n_rows - 1)
+    if rows_ref is not None:
+        a_idx = pl_triton.load(rows_ref.at[b, a_idx])
+    return a_idx * row_stride, valid
+
+
+def _bag_kernel(q_ref, d_ref, tol_ref, *rest, coefs, f_total, a_t, t, c_all,
+                n_rows, has_rows):
+    rows_ref = rest[0] if has_rows else None
+    out_ref = rest[-1]
+    i = pl.program_id(0)
+    b = pl.program_id(1)
+    tol = tol_ref[0]
+    t_pad = _pow2(t)
+    base, a_valid = _row_offsets(rows_ref, b, i, a_t, n_rows, t * c_all)
+    t_idx = jnp.arange(t_pad)
+    t_valid = t_idx < t
+    offs = base[:, None] + (jnp.minimum(t_idx, t - 1) * c_all)[None, :]
+    mask = a_valid[:, None] & t_valid[None, :]
+    d = [
+        pl_triton.load(d_ref.at[offs + c], mask=mask, other=PAD_VALUE)
+        for c in range(coefs)
+    ]
+
+    def body(f, votes):
+        ok = _frame_ok(lambda c: d[c], q_ref, b, f, coefs, tol)
+        return votes + jnp.max(ok.astype(jnp.int32), axis=1)
+
+    votes = jax.lax.fori_loop(0, f_total, body, jnp.zeros((a_t,), jnp.int32))
+    out_ref[b, pl.ds(i * a_t, a_t)] = votes
+
+
+def _aligned_kernel(q_ref, d_ref, tol_ref, *rest, coefs, f_total, a_t, o_t,
+                    t, c_all, n_rows, has_rows):
+    rows_ref = rest[0] if has_rows else None
+    out_ref = rest[-1]
+    i = pl.program_id(0)
+    j = pl.program_id(1)
+    b = pl.program_id(2)
+    tol = tol_ref[0]
+    base, a_valid = _row_offsets(rows_ref, b, i, a_t, n_rows, t * c_all)
+    # one element per (offset, coefficient) of the tile: a row's window of
+    # o_t frames is ONE contiguous run of o_t·C values in the [A, T, C]
+    # layout, so the loads coalesce; the per-frame AND over coefficients
+    # is a min over the trailing axis after a reshape to [a_t, o_t, C]
+    e = jnp.arange(o_t * c_all)
+    c_e = e % c_all
+    t_rel = e // c_all
+    o_first = j * o_t - (f_total - 1)
+
+    def body(f, acc):
+        tt = o_first + f + t_rel
+        mask = a_valid[:, None] & ((tt >= 0) & (tt < t))[None, :]
+        offs = base[:, None] + (jnp.clip(tt, 0, t - 1) * c_all + c_e)[None, :]
+        d = pl_triton.load(d_ref.at[offs], mask=mask, other=PAD_VALUE)
+        qv = pl_triton.load(q_ref.at[b, jnp.minimum(c_e, coefs - 1), f])
+        # coefficients past `coefs` never vote against; out-of-band max2
+        # (use2 ≤ 0) drops only the coef-2 condition (PARITY.md §3.3)
+        skip = (c_e >= coefs) | ((c_e == 1) & (q_ref[b, coefs, f] <= 0.0))
+        hit = (jnp.abs(d - qv[None, :]) <= tol) | skip[None, :]
+        hit = jnp.min(hit.astype(jnp.int32).reshape(a_t, o_t, c_all), axis=2)
+        return acc + hit
+
+    acc = jax.lax.fori_loop(
+        0, f_total, body, jnp.zeros((a_t, o_t), jnp.int32)
     )
+    out_ref[b, j, pl.ds(i * a_t, a_t)] = jnp.max(acc, axis=1)
 
 
-@functools.lru_cache(maxsize=4096)
-def _aligned_time_chunk_cached(
-    t: int, f: int, coefs: int, vmem_budget: int
-) -> int | None:
-    """Memoized and O(divisors(t/8)): the chunk selection runs in the
-    engine's dispatch gate on every search, where a linear scan over
-    hours-long tiers (t ~ 10^6) would cost milliseconds per request. The
-    budget is part of the cache key so tests that monkeypatch
-    _VMEM_MATCH_BUDGET never see (or leave behind) stale entries."""
-    budget_rows = vmem_budget // (4 * 128)
-    if _aligned_rows(t, f, coefs, sliding=False) <= budget_rows:
-        return t  # monolithic tile (no slide code, no carried copy)
-    if t % 8 != 0:
-        return None  # only the monolithic tile divides T
-    if _aligned_rows(8, f, coefs, sliding=True) > budget_rows:
-        return None  # one query-window of offsets alone busts VMEM
-    # chunks are 8*d for divisors d of t/8 — enumerate them in O(sqrt)
-    m = t // 8
-    best = None
-    for lo in range(1, int(m**0.5) + 1):
-        if m % lo:
-            continue
-        for d in (lo, m // lo):
-            chunk = 8 * d
-            if (
-                chunk < t
-                and _aligned_rows(chunk, f, coefs, sliding=True)
-                <= budget_rows
-                and (best is None or chunk > best)
-            ):
-                best = chunk
-    return best
+def _kernel_votes(db, q, active, use2, tol, rows, *, coefs, aligned,
+                  interpret):
+    """[B, A] (or [B, K] with ``rows``) votes from the Triton kernel."""
+    a, t, c = db.shape
+    b, f, _ = q.shape
+    n = a if rows is None else rows.shape[1]
+    q_rows = _query_rows(q, active, use2, coefs)
+    args = [q_rows, db.reshape(-1), jnp.reshape(tol, (1,)).astype(jnp.float32)]
+    if rows is not None:
+        args.append(rows.astype(jnp.int32))
+    common = dict(coefs=coefs, f_total=f, t=t, c_all=c, n_rows=n,
+                  has_rows=rows is not None)
+    if aligned:
+        a_t, o_t = ALIGNED_A_TILE, ALIGNED_O_TILE
+        n_o = -(-(t + f - 1) // o_t)
+        kernel = functools.partial(_aligned_kernel, a_t=a_t, o_t=o_t, **common)
+        grid = (-(-n // a_t), n_o, b)
+        out_shape = (b, n_o, grid[0] * a_t)
+        name = "tiresias_aligned_votes"
+    else:
+        a_t = max(1, BAG_TILE_ELEMS // _pow2(t))
+        kernel = functools.partial(_bag_kernel, a_t=a_t, **common)
+        grid = (-(-n // a_t), b)
+        out_shape = (b, grid[0] * a_t)
+        name = "tiresias_bag_votes"
+    out = pl.pallas_call(
+        kernel,
+        out_shape=jax.ShapeDtypeStruct(out_shape, jnp.int32),
+        grid=grid,
+        in_specs=[pl.no_block_spec] * len(args),
+        out_specs=pl.no_block_spec,
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=1
+        ),
+        interpret=interpret,
+        name=name,
+    )(*args)
+    if aligned:
+        out = out.max(axis=1)
+    return out[:, :n]
 
 
-def aligned_kernel_fits(
-    t: int, f: int, coefs: int, a_pad: int = 0
-) -> bool:
-    """Whether the aligned kernel can serve (tier_frames, query_frames,
-    coefs) within its VMEM/SMEM budgets — the engine's dispatch gate;
-    ineligible shapes run the (exact, slower) XLA aligned matcher.
-    Tier length is unbounded (the sliding-window accumulator streams
-    time chunks through a fixed footprint), so this only rejects shapes
-    whose single query-window of offsets busts VMEM, whose query busts
-    SMEM, or whose tier has no multiple-of-8 chunking. ``a_pad`` counts
-    the resident [1, A_pad] output block (see bag_kernel_fits)."""
-    if not pallas_query_fits(f, coefs):
-        return False
-    return _aligned_time_chunk(t, f, coefs, a_pad) is not None
+def _xla_votes(db, q, active, use2, tol, rows, *, coefs, aligned):
+    """The XLA form of the same votes (padding rows/frames hold
+    PAD_VALUE, so no mask operand is needed)."""
+    if rows is None:
+        return match_jax.match_votes(
+            db, None, q, active, use2, tol, coefs=coefs, aligned=aligned
+        )
+
+    def one(args):
+        qb, ab, ub, rb = args
+        return match_jax.match_votes(
+            db[rb], None, qb[None], ab[None], ub[None], tol, coefs=coefs,
+            aligned=aligned,
+        )[0]
+
+    return jax.lax.map(one, (q, active, use2, rows))
 
 
-@functools.partial(jax.jit, static_argnames=("coefs", "interpret"))
-def match_votes_pallas_aligned(
+def _serves(db, aligned: bool) -> bool:
+    a, t, c = db.shape
+    n_elems = a * t * c
+    if aligned:
+        return aligned_kernel_serves(c, n_elems)
+    return bag_kernel_serves(t, n_elems)
+
+
+@functools.partial(
+    jax.jit, static_argnames=("coefs", "aligned", "interpret")
+)
+def fused_votes(
     db: jax.Array,
     q: jax.Array,
     active: jax.Array,
     use2: jax.Array,
     tolerance: jax.Array | float,
     coefs: int = 1,
+    aligned: bool = False,
+    rows: jax.Array | None = None,
     interpret: bool = False,
 ) -> jax.Array:
-    """Aligned (offset-consistent) votes ``[B, A]`` — fused-kernel twin of
-    ``match_jax.match_votes(aligned=True)``. See :func:`match_votes_pallas`
-    for operand conventions."""
+    """Votes ``[B, A]`` int32 — or ``[B, K]`` for the per-query DB rows
+    ``rows [B, K]`` — bag (``aligned=False``) or aligned.
+
+    Args:
+      db: ``[A, T, C]`` with PAD_VALUE in padding (store layout).
+      q / active / use2: from :func:`match_jax.prepare_query`.
+      interpret: run the kernel in the Pallas interpreter (tests).
+    """
     a, t, c = db.shape
-    b, f, _ = q.shape
     if coefs < 1 or coefs > c:
         raise ValueError(f"coefs must be in [1, {c}]")
-    a_pad = -(-a // AUDIO_TILE) * AUDIO_TILE
-    if not aligned_kernel_fits(t, f, coefs, a_pad):
-        raise ValueError(
-            f"aligned kernel cannot serve tier={t}, query_frames={f}, "
-            f"coefs={coefs}, audios={a} within its VMEM/SMEM budgets — "
-            f"use the XLA matcher (see aligned_kernel_fits)"
+    tol = jnp.asarray(tolerance, jnp.float32)
+    # a PAD_VALUE query frame (a padded fingerprint searched with no
+    # frame count) would match DB padding once no mask operand exists;
+    # under a mask it matches nothing — make it inactive instead
+    active = active & (q[..., 0] > PAD_VALUE / 2)
+    kw = dict(coefs=coefs, aligned=aligned)
+    xla = functools.partial(_xla_votes, **kw)
+    if not _serves(db, aligned):
+        log.warning(
+            "%s kernel cannot serve db %s (%s); running the XLA form",
+            "aligned" if aligned else "bag", db.shape,
+            "coefficient count not a power of two, or int32 addressing"
+            if aligned else
+            f"tier > {BAG_TILE_ELEMS} frames or int32 addressing",
         )
-    tol = jnp.asarray(tolerance, dtype=jnp.float32).reshape(1)
-
-    if a_pad != a:
-        db = jnp.pad(db, ((0, a_pad - a), (0, 0), (0, 0)),
-                     constant_values=PAD_VALUE)
-    n_tiles = a_pad // AUDIO_TILE
-    # [C, T, A_pad]: time on sublanes (see _make_aligned_kernel)
-    d_tm = jnp.transpose(db[..., :coefs], (2, 1, 0))
-
-    q_all = _query_rows(q, active, use2, coefs)  # [B, coefs+1, F]
-
-    t_chunk = _aligned_time_chunk(t, f, coefs, a_pad)
-    n_tchunks = t // t_chunk
-    # sliding accumulator window: one chunk's worth of offsets plus the
-    # query span, sublane-aligned (see _make_aligned_kernel)
-    o_buf = -(-(t_chunk + f - 1) // 8) * 8
-
-    call = pl.pallas_call(
-        _make_aligned_kernel(coefs, f, t_chunk, o_buf, n_tchunks),
-        in_specs=[
-            pl.BlockSpec((coefs + 1, f), lambda i, j: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((coefs, t_chunk, AUDIO_TILE), lambda i, j: (0, j, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_shape=jax.ShapeDtypeStruct((1, a_pad), jnp.float32),
-        out_specs=pl.BlockSpec((1, a_pad), lambda i, j: (0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((o_buf, AUDIO_TILE), jnp.float32),  # sliding window
-            pltpu.VMEM((1, AUDIO_TILE), jnp.float32),  # running per-audio max
-        ],
-        # time chunks on the FAST grid dim: the window in scratch is zeroed
-        # at chunk 0, slid at each boundary, and the folded max is emitted
-        # at the last chunk of each audio tile
-        grid=(n_tiles, n_tchunks),
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=4 * f * a_pad * t * (coefs + 1),
-            bytes_accessed=4 * (a_pad * t * coefs + f * (coefs + 1) + a_pad),
-            transcendentals=0,
-        ),
+        return xla(db, q, active, use2, tol, rows)
+    kernel = functools.partial(_kernel_votes, interpret=interpret, **kw)
+    if interpret:
+        return kernel(db, q, active, use2, tol, rows)
+    return jax.lax.platform_dependent(
+        db, q, active, use2, tol, rows, cuda=kernel, default=xla
     )
 
-    def one(q_b):  # [coefs+1, F]
-        return call(q_b, d_tm, tol)[0]
 
-    votes = jax.lax.map(one, q_all)
-    return votes[:, :a].astype(jnp.int32)
-
-
-PREFILTER_K = 1024  # candidates rescored exactly by the aligned kernel
+PREFILTER_K = 1024  # candidates rescored exactly by the fused matcher
 
 
 @functools.partial(
@@ -476,39 +342,38 @@ def aligned_prefiltered_votes(
     aligned: bool = True,
 ):
     """Aligned (or strict BAG) votes via a CERTIFIED two-stage search:
-    MXU lattice bounds → top-k candidate gather → exact rescoring of the
+    lattice bounds → top-k candidate selection → exact rescoring of the
     candidates with the requested matcher.
 
     The key inequalities (hold per audio, for any inputs):
 
-      aligned_score(a) ≤ bag_votes(a)            — the best single offset's
+      aligned_score(a) ≤ bag_score(a)            — the best single offset's
         hit count can't exceed the any-offset hit count; and
-      bag_votes(a) ≤ min_c scaled_lattice_votes_c(a)  — an aligned hit
+      bag_score(a) ≤ min_c scaled_lattice_votes_c(a)  — an aligned hit
         passes EVERY coef's tolerance test, and each coef's clipped-scaled
         distance map at s·tol+1 upper-bounds that coef's test
-        (match_lattice.bound_votes) — a couple of MXU matmuls.
+        (match_lattice.bound_votes) — a couple of matmuls.
 
     ``aligned=False`` rescores candidates with the BAG matcher instead
     (the reference's own strict multi-coef configuration — coefs=2, no
     truncation, fp_handler.c:247-250,321): the chain's middle term IS
-    the bag score, so the same bound certifies it a fortiori. This is
-    what turns the strict config's O(B·F·A·T·C) full scan into the same
-    ~A/k two-stage cost the accuracy mode gets (VERDICT r4 #6).
+    the bag score, so the same bound certifies it a fortiori. This turns
+    the strict config's O(B·F·A·T·C) full scan into the same ~A/k
+    two-stage cost the accuracy mode gets.
 
     So rescoring only the top-k audios BY BOUND is provably exact whenever
     ``best_rescored > max unselected bound`` (every unselected audio's
     true score ≤ its bound ≤ that max < best) — the returned
     ``certificate``. The caller falls back to the full scan when it is
     False (pathological corpora: ≥k near-duplicates of the query). Cost:
-    O(B·K·A) matmuls + O(B·F·k·T·C) rescore instead of O(B·F·A·T·C) — a
-    ~A/k speedup of the accuracy mode at 100k-1M tracks.
+    O(B·K·A) matmuls + O(B·F·k·T·C) rescore instead of O(B·F·A·T·C).
 
-    Candidate selection uses the TPU's hardware-accelerated
-    ``approx_max_k`` (a sort-based exact top-k dominates the whole search
-    at 1M rows). Approximation cannot break exactness: the certificate is
-    checked against the EXACT maximum over the unselected set (selected
-    entries scattered out first), so a missed high-bound audio simply
-    fails the certificate and triggers the full-scan fallback.
+    Candidate selection uses ``approx_max_k``, which lowers to an exact
+    top-k on the GPU and CPU. Approximation could not break exactness
+    either way: the certificate is checked against the EXACT maximum over
+    the unselected set (selected entries scattered out first), so a
+    missed high-bound audio simply fails the certificate and triggers the
+    full-scan fallback.
 
     Context filtering: ``ctx_ids`` ([A] int32 per-row context ids,
     store.ctx_ids_for) + ``ctx_id`` (traced scalar) restrict the search to
@@ -536,7 +401,11 @@ def aligned_prefiltered_votes(
             "aligned_prefiltered_votes requires matching non-empty "
             "specs/maps (store.bound_maps_for provides both)"
         )
-    from tiresias_tpu.ops.match_lattice import bound_votes
+    from tiresias_tpu.ops.match_lattice import (
+        bound_votes,
+        certificate,
+        scatter_candidates,
+    )
 
     a = db.shape[0]
     b = q.shape[0]
@@ -558,23 +427,14 @@ def aligned_prefiltered_votes(
         bound = jnp.where(keep[None, :], bound, -1)
     _, idx = jax.lax.approx_max_k(
         bound.astype(jnp.float32), k, recall_target=0.99
-    )  # [B, K] — high recall: a missed high-bound audio costs a
-    # certificate failure → full-scan fallback (exact but ~10x slower)
+    )  # [B, K]
     rows = jnp.arange(b)[:, None]
     unselected_max = bound.at[rows, idx].set(-1).max(axis=1)
 
-    rescore = match_votes_pallas_aligned if aligned else match_votes_pallas
-
-    def per_query(args):
-        qb, ab, ub, idxb = args
-        db_k = db[idxb]  # [K, T, C] candidate gather
-        votes_k = rescore(
-            db_k, qb[None], ab[None], ub[None], tol, coefs=coefs,
-            interpret=interpret,
-        )
-        return votes_k[0]
-
-    votes_k = jax.lax.map(per_query, (q, active, use2, idx))  # [B, K]
+    votes_k = fused_votes(
+        db, q, active, use2, tol, coefs=coefs, aligned=aligned, rows=idx,
+        interpret=interpret,
+    )  # [B, K]
     if keep is not None:
         # an out-of-context candidate can still be selected when fewer
         # than k in-context rows exist; its true votes must not win,
@@ -583,8 +443,6 @@ def aligned_prefiltered_votes(
     # shared certification rule + candidate scatter (match_lattice):
     # every prefiltered variant — dialplan lattice, aligned, shard-mapped,
     # fused — certifies and lays out votes identically by construction
-    from tiresias_tpu.ops.match_lattice import certificate, scatter_candidates
-
     votes = scatter_candidates(votes_k, idx, a)
     return votes, certificate(votes_k, unselected_max, top)
 
@@ -603,28 +461,26 @@ def search_batch_pallas(
     interpret: bool = False,
     with_top1: bool = True,
 ):
-    """Drop-in fused-kernel equivalent of ``match_jax.search_batch``.
+    """Fused-matcher equivalent of ``match_jax.search_batch``.
 
     Takes the store-layout ``db`` (PAD_VALUE padding) directly — no mask
     operand. Returns (best [B], match_count [B], votes [B, A]).
-    ``aligned=True`` dispatches the offset-consistent kernel (the D9
-    accuracy mode); shapes rejected by ``aligned_kernel_fits`` must use
-    the XLA path."""
+    ``aligned=True`` dispatches the offset-consistent matcher (the D9
+    accuracy mode)."""
     if tolerance < 0:
         tolerance = DEF_SEARCH_TOLERANCE  # fp_handler.c:252-256
     if tolerance >= PALLAS_TOL_MAX:
         raise ValueError(
-            f"tolerance {tolerance} breaks the fused kernels' "
+            f"tolerance {tolerance} breaks the fused matchers' "
             f"value-encoded masking (INACTIVE_Q/PAD_VALUE sentinels at "
             f"±1e6) — use the XLA matcher for tolerances >= {PALLAS_TOL_MAX}"
         )
     q, active, use2 = match_jax.prepare_query(
         query, n_frames, freq_ignore_low, freq_ignore_high, trunc_coef1
     )
-    fn = match_votes_pallas_aligned if aligned else match_votes_pallas
-    votes = fn(
+    votes = fused_votes(
         db, q, active, use2, jnp.float32(tolerance), coefs=coefs,
-        interpret=interpret,
+        aligned=aligned, interpret=interpret,
     )
     if not with_top1:
         return None, None, votes

@@ -3,7 +3,7 @@
 A literal simulation of ``fp_search_fingerprint_info``
 (/root/reference/src/fp_handler.c:207-408) — the per-frame SQL loop —
 against a list-of-arrays fingerprint DB. It exists solely to cross-validate
-the TPU matcher (:mod:`tiresias_tpu.ops.match_jax` / ``match_pallas``) in
+the device matchers (:mod:`tiresias_tpu.ops.match_jax` / ``match_pallas``) in
 tests; it is deliberately slow and obvious.
 
 Semantics replicated (see PARITY.md §3):

@@ -1,12 +1,12 @@
-"""Batched JAX/XLA fingerprint chain (TPU compute path).
+"""Batched JAX/XLA fingerprint chain (the device compute path).
 
-TPU-first redesign of the reference's per-frame serial aubio loop
+Redesign of the reference's per-frame serial aubio loop
 (/root/reference/src/fp_handler.c:632-661): instead of one 256-sample hop at
 a time through C callbacks, whole batches of signals are fingerprinted in a
 single jitted computation:
 
     pcm [B, S] → frames [B, F, 512] → |rFFT| [B, F, 257]
-        → mel (matmul, MXU) [B, F, 40] → log10 → DCT (matmul, MXU) [B, F, C]
+        → mel (matmul) [B, F, 40] → log10 → DCT (matmul) [B, F, C]
         → 10·log10(|c|)
 
 Design notes:
@@ -14,9 +14,9 @@ Design notes:
     is (chunk[f-1] ++ chunk[f]) of the hop-chunked signal, with a zero chunk
     for f = −1 — exactly the pvoc sliding-buffer semantics of the golden
     model (:mod:`tiresias_tpu.ops.reference_dsp`).
-  * Mel apply and DCT are matmuls → MXU; the FFT uses XLA's native TPU FFT.
-    A fully fused Pallas kernel (DFT-as-matmul) lives in
-    :mod:`tiresias_tpu.ops.mfcc_pallas`.
+  * Mel apply and DCT are matmuls at HIGHEST precision; the FFT is XLA's
+    (cuFFT on the GPU, O(N log N)). A DFT-as-matmul kernel measured slower
+    on the GPU and was removed (PERF.md, Findings).
   * All shapes static; variable-length audio is padded on the host to
     bucketed frame counts (see :func:`pad_frames_bucket`) and carries an
     explicit ``n_frames`` so downstream masking is exact.
@@ -42,8 +42,9 @@ from tiresias_tpu.ops.windows import hanningz
 # tolerance band can ever match padding.
 PAD_VALUE = -1e6
 
-# aubio's SAFE_LOG10 floor is 2e-42, a float32 *subnormal* — TPUs flush
-# subnormals to zero, so max(x, 2e-42) silently becomes max(x, 0) on device
+# aubio's SAFE_LOG10 floor is 2e-42, a float32 *subnormal* — accelerators
+# may flush subnormals to zero, so max(x, 2e-42) silently becomes
+# max(x, 0) on device
 # and log10 of empty mel filters would be -inf. Instead: values below the
 # smallest safe normal threshold map to the exact aubio constant
 # log10(2e-42); values in [2e-42, 1e-37) would differ from aubio by <5 in the
@@ -53,7 +54,7 @@ _LOG10_FLOOR = float(np.log10(VERY_SMALL_NUMBER))
 
 
 def safe_log10(x: jax.Array) -> jax.Array:
-    """aubio SAFE_LOG10, robust to TPU subnormal flushing."""
+    """aubio SAFE_LOG10, robust to subnormal flushing."""
     return jnp.where(
         x >= _FLOOR_THRESHOLD,
         jnp.log10(jnp.maximum(x, _FLOOR_THRESHOLD)),
@@ -91,7 +92,7 @@ _device_consts_lock = threading.Lock()
 
 
 def cache_device_constants(cache: dict, key, build, maxsize: int = 16):
-    """Shared device-constant cache (used here and by mfcc_pallas).
+    """Shared device-constant cache.
 
     NOT an lru_cache: under a jit trace ``jnp.asarray`` of a host array
     yields a constant tracer, and caching one leaks it out of its trace
@@ -201,9 +202,10 @@ def spectral_chain(
     (parallel/sharding.py) — a fix here (precision, log floor) must reach
     both or the sharded fingerprint silently diverges from single-device.
 
-    HIGHEST precision: TPU matmuls otherwise truncate to bf16, which is
-    visible (±0.03) in the log-log fingerprint domain and would break
-    aubio parity. These matmuls are a negligible share of the chain's cost.
+    HIGHEST precision: a float32 matmul may otherwise run in TF32 (or
+    bf16) on an accelerator, which is visible (±0.03) in the log-log
+    fingerprint domain and would break aubio parity. These matmuls are a
+    negligible share of the chain's cost.
     """
     mags = jnp.abs(jnp.fft.rfft(frames * window, axis=-1))
     mels = jnp.matmul(
@@ -251,14 +253,6 @@ def _fingerprint_padded(
     return spectral_chain(frames, window, mel_t, dct_t)
 
 
-def _use_pallas() -> bool:
-    """Fused Pallas kernel on TPU (1.36x the XLA-FFT path, measured on
-    v5e); XLA path elsewhere and when TIRESIAS_NO_PALLAS is set."""
-    from tiresias_tpu.utils.platform import is_tpu
-
-    return is_tpu()
-
-
 def fingerprint_padded_batch(
     pcm: jax.Array | np.ndarray,
     samplerate: int,
@@ -276,13 +270,6 @@ def fingerprint_padded_batch(
     if n_valid is not None:
         n_valid = jnp.asarray(n_valid, jnp.int32)
     scale = coef_scale_for(dsp)  # round-5 noise weighting (None = parity)
-    if _use_pallas():
-        from tiresias_tpu.ops.mfcc_pallas import fingerprint_padded_batch_pallas
-
-        out = fingerprint_padded_batch_pallas(
-            pcm, samplerate, dsp, law=law, n_valid=n_valid
-        )
-        return out if scale is None else out * jnp.asarray(scale)
     window, mel_t, dct_t = _device_dsp_constants(dsp, int(samplerate))
     pcm = jnp.asarray(pcm)  # int16/uint8 stays raw (converted on device)
     out = _fingerprint_padded(

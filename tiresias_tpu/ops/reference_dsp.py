@@ -25,9 +25,10 @@ Chain details replicated (and documented in PARITY.md):
     (/root/reference/src/fp_handler.c:651), floored at ``|coef| >= 2e-42``
     for finiteness (exact zero would be -inf in C; see PARITY.md §4).
 
-Everything is pure NumPy so it runs identically everywhere; the JAX/Pallas
-implementations in :mod:`tiresias_tpu.ops.mfcc_jax` / ``mfcc_pallas`` are
-validated against this model by the golden tests.
+Everything is pure NumPy so it runs identically everywhere; the JAX
+implementation in :mod:`tiresias_tpu.ops.mfcc_jax` is validated against this
+model by the golden tests (and on the GPU by ``chip_smoke.py``), with the
+float32 error bound of :func:`fp_error_bound`.
 """
 
 from __future__ import annotations
@@ -118,3 +119,53 @@ def mfcc_signal(pcm: np.ndarray, samplerate: float, dsp: DspConfig | None = None
     mags = magnitude_spectrum(frames, dsp)
     mels = mel_energies(mags, dsp, samplerate)
     return mfcc(log_mel(mels), dsp)
+
+
+# float32 parity rule (tests/test_mfcc_jax.py module docstring): the
+# predicted float32 noise of a stored value is a first-order propagation of
+# the magnitude path's noise scale ALPHA through log10 → DCT → 10·log10|.|;
+# entries predicted noisier than BOUND_CAP are skipped (noise in every
+# float32 implementation, aubio's included), the rest must agree within
+# EXCESS_TOL on top of their bound.
+BOUND_ALPHA = 2e-5
+BOUND_CAP = 0.2
+EXCESS_TOL = 5e-3
+
+
+def fp_error_bound(mels: np.ndarray, coefs: np.ndarray, dsp: DspConfig) -> np.ndarray:
+    """Per-(frame, coef) predicted float32 noise of the stored value, from
+    the float64 mel energies and raw coefficients."""
+    ln10 = np.log(10.0)
+    e_max = mels.max(axis=1, keepdims=True)
+    rel = np.where(
+        mels > 0, BOUND_ALPHA * e_max / np.maximum(mels, 1e-300), 0.0
+    )
+    err_c = (rel / ln10) @ np.abs(dct_matrix(dsp.n_filters, dsp.n_coefs)).T
+    return (10.0 / ln10) * err_c / np.maximum(np.abs(coefs), 1e-12)
+
+
+def parity_report(ours: np.ndarray, golden: np.ndarray, bound: np.ndarray) -> dict:
+    """The float32-vs-oracle comparison: ``worst_excess`` (largest
+    ``|ours - golden| - bound`` over covered entries — must stay below
+    EXCESS_TOL), ``coverage`` (share of entries with bound < BOUND_CAP),
+    and ``max_abs_diff`` over the covered entries."""
+    ours = np.asarray(ours, np.float64)
+    if ours.shape != golden.shape:
+        raise ValueError(f"shape {ours.shape} != golden {golden.shape}")
+    use = bound < BOUND_CAP
+    diff = np.abs(ours - golden)
+    return {
+        "worst_excess": float((diff - bound)[use].max()) if use.any() else 0.0,
+        "coverage": float(use.mean()),
+        "max_abs_diff": float(diff[use].max()) if use.any() else 0.0,
+    }
+
+
+def oracle_stages(pcm: np.ndarray, samplerate: float, dsp: DspConfig | None = None):
+    """(fingerprint, bound) of the float64 chain for one signal."""
+    dsp = dsp or DspConfig()
+    mels = mel_energies(
+        magnitude_spectrum(frame_signal(pcm, dsp), dsp), dsp, samplerate
+    )
+    coefs = mfcc(log_mel(mels), dsp)
+    return fingerprint_from_coefs(coefs), fp_error_bound(mels, coefs, dsp)

@@ -1,4 +1,4 @@
-"""parallel subpackage of tiresias-tpu: mesh + shard_map scale-out."""
+"""parallel subpackage of tiresias: mesh + shard_map scale-out."""
 
 from tiresias_tpu.parallel.distributed import (
     global_mesh,

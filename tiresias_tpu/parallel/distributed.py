@@ -1,7 +1,7 @@
 """Multi-host (multi-controller) support: DCN across slices.
 
 The reference has no distributed layer at all (SURVEY.md §2/§5 — single
-process, no sockets). The TPU-native scale-out beyond one host is JAX's
+process, no sockets). The scale-out beyond one host is JAX's
 multi-controller runtime: every host runs the same program, calls
 :func:`initialize_distributed` once, and then builds meshes over the
 GLOBAL device set — ``pjit``/``shard_map`` emit ICI collectives within a
@@ -50,7 +50,7 @@ def initialize_distributed(
     """Idempotent wrapper around ``jax.distributed.initialize``.
 
     With no arguments, JAX auto-detects the cluster from the environment
-    (TPU pod metadata, or ``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/
+    (cluster auto-detection where JAX supports it, or ``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/
     ``JAX_PROCESS_ID``). Must run before the first device access in the
     process. After it, ``jax.devices()`` is the GLOBAL device list and
     ``jax.local_devices()`` this host's slice.

@@ -1,21 +1,22 @@
 """Multi-chip sharding: device mesh, sharded fingerprinting and matching.
 
 The reference is single-process, single-node, shared-memory C (SURVEY.md §2
-"Parallelism strategies": none exist to translate). The TPU-native scale-out
-design maps the workload onto a 2-D device mesh:
+"Parallelism strategies": none exist to translate). The scale-out design maps
+the workload onto a 2-D device mesh:
 
   * ``batch`` axis — data parallel: query signals / streams sharded across
     devices (the dominant axis for ingest and streaming recognition).
   * ``db`` axis — "tensor"-style parallel: the fingerprint database matrix
     ``[A, T, C]`` sharded on its audio axis, so each chip holds and scans a
-    slice of a DB too large (or too latency-critical) for one chip; votes
-    are exchanged with one tiled ``all_gather`` over ICI (choosing gather
-    over psum: each shard produces *disjoint* audio columns, so
-    concatenation, not summation, is the reduction).
+    slice of a DB too large (or too latency-critical) for one device; votes
+    are exchanged with one tiled ``all_gather`` (choosing gather over psum:
+    each shard produces *disjoint* audio columns, so concatenation, not
+    summation, is the reduction).
 
-Everything is ``shard_map`` over ``jax.sharding.Mesh`` + XLA collectives —
-the TPU-native equivalent of the NCCL/MPI layer a GPU framework would hand
--roll. Tests run on a CPU-simulated 8-device mesh (tests/conftest.py).
+Everything is ``shard_map`` over ``jax.sharding.Mesh`` + XLA collectives,
+which XLA hands to NCCL on GPUs. The cards of one host reach each other all
+to all over NVLink, so the mesh follows the algorithm alone. Tests run on a
+CPU-simulated 8-device mesh (tests/conftest.py).
 """
 
 from __future__ import annotations
@@ -43,8 +44,8 @@ def make_mesh(
 ) -> Mesh:
     """Build a ``(db, batch)`` mesh over the available devices.
 
-    Defaults: all devices on the ``db`` axis (matching the <10 ms p50 @ 10k
-    tracks target, where DB scan latency dominates), ``batch=1``.
+    Defaults: all devices on the ``db`` axis (DB scan latency dominates a
+    search), ``batch=1``.
     """
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)
@@ -68,7 +69,7 @@ def shard_db(mesh: Mesh, db: np.ndarray, db_mask: np.ndarray):
     """Pad the audio axis to the db-axis size and device_put with a
     ``P('db')`` sharding. Padding rows are all-masked AND hold PAD_VALUE
     (never vote in either the masked XLA matcher or the value-encoded
-    Pallas kernels)."""
+    fused matchers)."""
     from tiresias_tpu.ops.mfcc_jax import PAD_VALUE
 
     n_db = mesh.shape[DB_AXIS]
@@ -106,7 +107,7 @@ def _sharded_votes(
     audio_block: int,
     aligned: bool = False,
 ) -> jax.Array:
-    """Votes ``[B, A_pad]`` computed shard-locally then gathered over ICI."""
+    """Votes ``[B, A_pad]`` computed shard-locally then gathered."""
 
     def shard_fn(db_s, mask_s, q_s, active_s, use2_s, tol):
         # [B_local, A_local] — each db shard scans its slice only; the
@@ -148,7 +149,7 @@ def sharded_search(
     n_audios: int | None = None,
     audio_block: int = match_jax.AUDIO_BLOCK,
     use_pallas: bool = False,
-    interpret: bool | None = None,
+    interpret: bool = False,
     with_top1: bool = True,
 ):
     """Reference-semantics search with the DB sharded across the mesh.
@@ -157,13 +158,11 @@ def sharded_search(
     zero-frame queries on host). Returns (best [B], match_count [B],
     votes [B, A]). ``aligned=True`` = offset-consistent voting (PARITY D9).
 
-    ``use_pallas=True`` runs the fused Mosaic matcher per DB shard
+    ``use_pallas=True`` runs the fused matcher per DB shard
     (:func:`sharded_votes_pallas`) instead of the GSPMD-partitioned XLA
-    matcher — same result, kernel-resident DB tiles. The caller must gate
-    on the kernel fit (``bag_kernel_fits``/``aligned_kernel_fits`` with
-    the per-shard tier length). ``interpret=None`` auto-selects Mosaic
-    interpret mode from the mesh's device platform (CPU test meshes
-    interpret; real TPU meshes compile).
+    matcher — same result; the caller keeps the tolerance below
+    ``match_pallas.PALLAS_TOL_MAX``. ``interpret=True`` (tests) runs the
+    Triton kernels in the Pallas interpreter.
     """
     if tolerance < 0:
         # the -1 "use default" sentinel, same as every sibling entry point
@@ -183,10 +182,6 @@ def sharded_search(
         active = jnp.pad(active, ((0, pad), (0, 0)))
         use2 = jnp.pad(use2, ((0, pad), (0, 0)))
     if use_pallas:
-        if interpret is None:
-            from tiresias_tpu.utils.platform import mesh_is_tpu
-
-            interpret = not mesh_is_tpu(mesh)
         votes = sharded_votes_pallas(
             mesh, db, q, active, use2, tolerance,
             coefs=coefs, aligned=aligned, interpret=interpret,
@@ -217,12 +212,11 @@ def sharded_votes_pallas(
     aligned: bool = False,
     interpret: bool = False,
 ) -> jax.Array:
-    """Fused Pallas matcher per DB shard under shard_map.
+    """Fused matcher per DB shard under shard_map.
 
-    Each chip runs :func:`tiresias_tpu.ops.match_pallas.match_votes_pallas`
-    (or, with ``aligned=True``, the offset-consistent
-    :func:`~tiresias_tpu.ops.match_pallas.match_votes_pallas_aligned` —
-    the PARITY.md D9 accuracy mode) on its slice of the audio axis; vote
+    Each device runs :func:`tiresias_tpu.ops.match_pallas.fused_votes`
+    (bag, or with ``aligned=True`` the offset-consistent PARITY.md D9
+    accuracy mode) on its slice of the audio axis; vote
     columns stay disjoint (out spec ``P(batch, db)``), so no collective is
     needed until the caller's top-1. Aligned scores are per-audio maxima
     over offsets, so db-sharding commutes with them exactly like bag
@@ -244,16 +238,12 @@ def _sharded_votes_pallas_fn(
     on the engine's per-request search path, where rebuilding the closure
     and re-tracing the shard_map on every call (unlike the module-level
     jitted ``_sharded_votes``) would burn milliseconds per view."""
-    from tiresias_tpu.ops.match_pallas import (
-        match_votes_pallas,
-        match_votes_pallas_aligned,
-    )
-
-    kernel = match_votes_pallas_aligned if aligned else match_votes_pallas
+    from tiresias_tpu.ops.match_pallas import fused_votes
 
     def shard_fn(db_s, q_s, act_s, u2_s, tol):
-        return kernel(
-            db_s, q_s, act_s, u2_s, tol, coefs=coefs, interpret=interpret
+        return fused_votes(
+            db_s, q_s, act_s, u2_s, tol, coefs=coefs, aligned=aligned,
+            interpret=interpret,
         )
 
     return jax.jit(
@@ -285,7 +275,7 @@ def sharded_aligned_prefiltered(
     tolerance: float,
     specs: tuple,
     coefs: int,
-    interpret: bool | None = None,
+    interpret: bool = False,
     ctx_ids: jax.Array | None = None,
     ctx_id: int | None = None,
     top: int = 1,
@@ -310,10 +300,6 @@ def sharded_aligned_prefiltered(
     with B divisible by the mesh batch axis (pad with zero-frame queries —
     they certify trivially). Returns (votes [B, A], certs [B, n_db] bool).
     """
-    if interpret is None:
-        from tiresias_tpu.utils.platform import mesh_is_tpu
-
-        interpret = not mesh_is_tpu(mesh)
     fn = _sharded_prefiltered_fn(
         mesh, specs, coefs, bool(interpret), len(maps),
         ctx_ids is not None, top, k, bool(aligned),
@@ -396,7 +382,7 @@ def sharded_lattice_prefiltered(
     and the caller's cross-shard top-1/top-k compares exact values — so
     when EVERY shard certifies, the combined result equals the GSPMD full
     scan. Any shard's failure must fall back for the whole view (the
-    caller checks ``certs.all()``). Pure XLA — no interpret mode needed.
+    caller checks ``certs.all()``). Pure XLA — no kernel involved.
 
     ``q0``/``active`` must have B divisible by the mesh batch axis (pad
     with zero-frame queries — they certify trivially). Returns

@@ -1,4 +1,4 @@
-"""serve subpackage of tiresias-tpu: streaming recognition frontend."""
+"""serve subpackage of tiresias: streaming recognition frontend."""
 
 from tiresias_tpu.serve.streaming import ChannelState, StreamingRecognizer
 

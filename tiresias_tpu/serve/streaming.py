@@ -1,6 +1,6 @@
 """Streaming recognition: many concurrent channels, batched scoring.
 
-TPU-first rebuild of the ``Tiresias()`` dialplan application's runtime
+Device-batched rebuild of the ``Tiresias()`` dialplan application's runtime
 (/root/reference/src/application_handler.c:66-312): where the reference
 records each channel to a temp WAV on its own Asterisk thread and then runs
 one per-call SQL search (``record_voice`` loop :248-312, search :180), here

@@ -1,4 +1,4 @@
-"""store subpackage of tiresias-tpu: HBM fingerprint matrix + host catalog."""
+"""store subpackage of tiresias: HBM fingerprint matrix + host catalog."""
 
 from tiresias_tpu.store.fingerprint_store import (
     AudioEntry,

@@ -1,6 +1,6 @@
 """HBM-resident fingerprint store + host-side catalog.
 
-TPU-first replacement for the reference's storage layer — the in-memory
+Device-resident replacement for the reference's storage layer — the in-memory
 SQLite database (``":memory:"``, /root/reference/src/fp_handler.c:30) holding
 ``context_list`` / ``audio_list`` / ``audio_fingerprint`` tables
 (/root/reference/src/fp_handler.c:673-756) behind the db_ctx abstraction
@@ -1152,13 +1152,13 @@ class FingerprintStore:
         return view.ctx_dev
 
     def value_map_for(self, view: TierView):
-        """Lazily-built lattice distance map for one view (MXU fast path);
+        """Lazily-built lattice distance map for one view (matmul fast path);
         cached on the view, which lives until the next mutation.
 
         Single-device stores build from the HOST tier matrix: the chunked
         fixed-shape build compiles once per frame tier, ever, instead of
-        once per padded audio count (a multi-second stall after every
-        capacity step on remote-compile transports). Meshed stores build
+        once per padded audio count (a compile stall after every
+        capacity step). Meshed stores build
         from the sharded device view — GSPMD row-partitions the build.
 
         Snapshot isolation: the host fast path reads the LIVE tier matrix,

@@ -1,10 +1,15 @@
 """Persistent XLA compilation cache.
 
-The framework's CLI and serving entry points run as separate processes; on
-TPU, first-time XLA compiles of the fingerprint/match graphs can be slow
-(and, over remote-compile transports, occasionally pathologically so).
+The framework's CLI and serving entry points run as separate processes, and
+first-time XLA compiles of the fingerprint/match graphs take seconds.
 Enabling JAX's persistent compilation cache makes every process after the
 first reuse the compiled executables from disk.
+
+Where the cache lives: ``JAX_COMPILATION_CACHE_DIR`` when it is set (JAX
+reads it itself; nothing else is set in code), otherwise one fixed
+directory inside the checkout, :data:`DEFAULT_DIR` (``<repo>/.jax_cache``,
+listed in ``.gitignore``). The path is part of the cache's key, so it
+never moves.
 
 The reference has no analogue — it is C compiled ahead of time; this is the
 JIT-world equivalent of shipping a compiled module.
@@ -14,28 +19,26 @@ from __future__ import annotations
 
 import os
 
-_DEFAULT_DIR = os.path.expanduser("~/.cache/tiresias_tpu/jax")
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 _enabled = False
 
 
-def enable_compilation_cache(directory: str | None = None) -> None:
+def enable_compilation_cache() -> None:
     """Idempotently enable the on-disk compilation cache.
 
-    Respects an externally-set ``JAX_COMPILATION_CACHE_DIR``; the
-    ``TIRESIAS_NO_COMPILE_CACHE`` env var disables entirely.
+    ``JAX_COMPILATION_CACHE_DIR`` wins when set; the
+    ``TIRESIAS_NO_COMPILE_CACHE`` env var disables the cache entirely.
     """
     global _enabled
     if _enabled or os.environ.get("TIRESIAS_NO_COMPILE_CACHE"):
         return
     import jax
 
-    if jax.config.jax_compilation_cache_dir is None:
-        path = (
-            directory
-            or os.environ.get("JAX_COMPILATION_CACHE_DIR")
-            or _DEFAULT_DIR
-        )
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        os.makedirs(DEFAULT_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", DEFAULT_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
     _enabled = True

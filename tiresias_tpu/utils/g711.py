@@ -8,7 +8,7 @@ the TCP protocol accepts the trunk bytes directly: one byte per 8 kHz
 sample, half the wire AND host->device bytes of int16. Decode is a
 256-entry table lookup that runs ON DEVICE (jnp.take inside the
 fingerprint program, ops/mfcc_jax.to_float_pcm) — the chip sees uint8,
-the MXU path sees the exact float the host decoder would have produced.
+the device path sees the exact float the host decoder would have produced.
 
 Tables follow the canonical CCITT G.711 expansion (the same Sun
 Microsystems g711.c algorithm Asterisk, sox, and CPython's audioop use);

@@ -1,4 +1,4 @@
-"""Margin-based acceptance study (round 5, VERDICT r4 #3).
+"""Margin-based acceptance study.
 
 The fixed-tolerance design's noisy recall decays with corpus scale
 (tol 0.1: 35/100 @10k -> 15/100 @1M) while the tol-0.3 rescue's
@@ -396,9 +396,8 @@ def weighted_study(tracks: int = 10_240) -> None:
         view = eng.store.search_views()[0]
         nf = np.full(qf.shape[0], n_q_frames, np.int32)
         v = eng._votes_for_view(
-            view, jnp.asarray(qf), nf, int(qf.shape[1]), 8, float(tol),
+            view, jnp.asarray(qf), nf, 8, float(tol),
             -1, -1, False, True, True, False,
-            bool(jax.devices()[0].platform == "tpu"), None,
             prefilter_top=2,  # the margin analysis needs an exact v2
         )
         return np.asarray(v)[:, : view.n_audios]
